@@ -1,0 +1,143 @@
+"""ctypes binding to the native C++ FASTA/FASTQ parser (native/fastx.cpp).
+
+The same shared library as the JAX package's binding (native/libktpnative.so,
+built with ``make -C native`` at first use).  When the build or the load
+fails, ``available()`` is False and io/fastx.py parses in Python instead.
+This is host parsing: nothing here touches the device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libktpnative.so")
+
+_lib = None
+_tried = False
+_lock = threading.Lock()
+
+
+def _load():
+    global _lib, _tried
+    with _lock:
+        if _tried:
+            return _lib
+        _tried = True
+        if not os.path.exists(_LIB_PATH):
+            try:
+                subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                               capture_output=True)
+            except (OSError, subprocess.CalledProcessError):
+                return None
+        try:
+            lib = ctypes.CDLL(_LIB_PATH)
+            _declare(lib)
+        except (OSError, AttributeError):  # no library, or a stale one
+            return None
+        _lib = lib
+        return _lib
+
+
+def _declare(lib) -> None:
+    """argtypes/restype of every entry point this binding calls."""
+    lib.ktp_open.restype = ctypes.c_void_p
+    lib.ktp_open.argtypes = [ctypes.c_char_p]
+    lib.ktp_close.restype = None
+    lib.ktp_close.argtypes = [ctypes.c_void_p]
+    lib.ktp_next_block.restype = ctypes.c_long
+    lib.ktp_next_block.argtypes = [
+        ctypes.c_void_p,
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        ctypes.c_long,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        ctypes.c_long,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+    ]
+    lib.ktp_next_block_packed.restype = ctypes.c_long
+    lib.ktp_next_block_packed.argtypes = [
+        ctypes.c_void_p,
+        np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+        ctypes.c_long,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        ctypes.c_long,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        ctypes.c_int32,
+    ]
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+class NativeFastxReader:
+    """Streaming reader over one file; ``stats`` accumulates
+    {bases, bad_bases, bad_reads, records}."""
+
+    def __init__(self, path: str, block_reads: int = 10000,
+                 block_bases: int = 1 << 26):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native parser unavailable")
+        self._lib = lib
+        self._h = lib.ktp_open(path.encode())
+        if not self._h:
+            raise FileNotFoundError(path)
+        self.block_reads = block_reads
+        self.block_bases = block_bases
+        self.stats = np.zeros(4, dtype=np.int64)
+
+    def __iter__(self):
+        """Yield (codes uint8 concatenated, offsets int64[n+1]) blocks."""
+        codes = np.empty(self.block_bases, dtype=np.uint8)
+        offsets = np.empty(self.block_reads + 1, dtype=np.int64)
+        try:
+            while True:
+                n = self._lib.ktp_next_block(
+                    self._h, codes, codes.size, offsets, self.block_reads,
+                    self.stats)
+                if n < 0:
+                    raise RuntimeError("native parser error (bad format or "
+                                       "single read larger than block_bases)")
+                if n == 0:
+                    return
+                yield codes[: offsets[n]].copy(), offsets[: n + 1].copy()
+        finally:
+            self.close()
+
+    def packed_blocks(self, n_threads: int | None = None):
+        """Yield (words uint32 flat, word_offsets int64[n+1], lengths
+        int32[n]): reads already in the ReadBatch word layout (each read
+        starts at a fresh word), encoded by ``n_threads`` C++ threads.
+        Reads with a non-ACGT base never appear."""
+        if n_threads is None:
+            n_threads = min(8, os.cpu_count() or 1)
+        cap_words = self.block_bases // 16 + self.block_reads
+        words = np.empty(cap_words, dtype=np.uint32)
+        woff = np.empty(self.block_reads + 1, dtype=np.int64)
+        lens = np.empty(self.block_reads, dtype=np.int32)
+        try:
+            while True:
+                n = self._lib.ktp_next_block_packed(
+                    self._h, words, cap_words, woff, lens, self.block_reads,
+                    self.stats, int(n_threads))
+                if n < 0:
+                    raise RuntimeError("native parser error (bad format or "
+                                       "single read larger than block_bases)")
+                if n == 0:
+                    return
+                yield (words[: woff[n]].copy(), woff[: n + 1].copy(),
+                       lens[:n].copy())
+        finally:
+            self.close()
+
+    def close(self):
+        if self._h:
+            self._lib.ktp_close(self._h)
+            self._h = None

@@ -1,0 +1,3 @@
+from . import bitops  # noqa: F401
+from . import rng  # noqa: F401
+from . import tournament  # noqa: F401
