@@ -1,7 +1,8 @@
 """kmerutils_tpu_torch — the PyTorch + CUDA port of kmerutils_tpu.
 
 The JAX package ``kmerutils_tpu`` is the reference; this package mirrors its
-module paths (``ops/``, ``base/``, ``io/``, ``sketch/``, ``cli/``) so each
+module paths (``ops/``, ``base/``, ``io/``, ``sketch/``, ``count/``,
+``cli/``) so each
 module has an obvious counterpart, and it never imports ``jax``.
 
 Conventions:
@@ -15,7 +16,9 @@ Conventions:
   as ``int32`` bit patterns.
 
 Ported so far: the datasketcher ProbMinHash (PROB3A) path, from FASTQ to the
-signature dump.  ROADMAP.md lists what is still to come.
+signature dump, and whole-file k-mer counting (``parsefastq kmer
+--count/--unique``, with its base and read-length statistics).  ROADMAP.md
+lists what is still to come.
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,9 @@ ctypes).
 The library is compiled at first use for Hopper (``sm_90a``) into
 ``build/kernels/`` at the repository root, under a name keyed by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one
-loads at once.  The kernels expose plain C entry points (no PyTorch headers),
+loads at once.  Each ``.cu`` file compiles in its own nvcc process, all
+started together, and one more nvcc call links the objects into the shared
+library.  The kernels expose plain C entry points (no PyTorch headers),
 which keeps the build to seconds.  Nothing here runs at import time.
 """
 
@@ -21,8 +23,9 @@ import time
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC_DIR), "..", "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -55,12 +58,70 @@ def library_path() -> str:
 
 
 def _declare(lib) -> None:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, ll, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_uint
     lib.launch_tournament_u32.restype = ci
     lib.launch_tournament_u32.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.launch_tournament_u64.restype = ci
     lib.launch_tournament_u64.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                           ci, vp]
+    lib.aggregate_scratch_words.restype = ll
+    lib.aggregate_scratch_words.argtypes = [ll]
+    lib.launch_merge.restype = ci
+    lib.launch_merge.argtypes = [ci, ci, ci, vp, vp, vp, ll, vp, vp, ll,
+                                 vp, vp, vp, ll, vp]
+    lib.launch_aggregate.restype = ci
+    lib.launch_aggregate.argtypes = [ci, ci, ci, vp, vp, vp, ll, cu, cu,
+                                     vp, vp, vp, vp, vp]
+
+
+def launch(fn, *args, device) -> None:
+    """Call a C launcher with the current stream of ``device`` appended;
+    raise when it returns a CUDA error."""
+    import torch
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
+
+
+def _compile(path: str) -> None:
+    """nvcc -c of every source in parallel, then one nvcc link."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}"
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    jobs = []
+    for src in srcs:
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    output, failed = [], []
+    for cmd, _obj, proc in jobs:
+        out, _ = proc.communicate()
+        output.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [nvcc, "-shared", *ARCH_FLAGS, "-o", f"{tmp}.so",
+               *[obj for _, obj, _ in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stderr}")
+        os.replace(f"{tmp}.so", path)
+    finally:
+        for _, obj, _ in jobs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    build_info.update(seconds=time.perf_counter() - t0, path=path,
+                      output="".join(output))
 
 
 def load():
@@ -72,18 +133,7 @@ def load():
             return _lib
         path = library_path()
         if not os.path.exists(path):
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[
-                s for s in _sources() if s.endswith(".cu")]]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{res.stderr}")
-            os.replace(tmp, path)
-            build_info.update(seconds=time.perf_counter() - t0, path=path,
-                              output=res.stdout + res.stderr)
+            _compile(path)
         lib = ctypes.CDLL(path)
         _declare(lib)
         _lib = lib

@@ -66,14 +66,6 @@ def _check_inputs(halves, winv, m: int) -> torch.device:
     return dev
 
 
-def _launch(fn, *args, device: torch.device) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
-
-
 def weighted_tournament(items: torch.Tensor, winv: torch.Tensor, m: int,
                         seed: int = 0,
                         return_positions: bool = False) -> torch.Tensor:
@@ -89,9 +81,9 @@ def weighted_tournament(items: torch.Tensor, winv: torch.Tensor, m: int,
     n, P = items.shape
     slotc = slot_consts(m, seed, dev).to(torch.int32)
     out = torch.empty((n, m), dtype=torch.int32, device=dev)
-    _launch(lib.launch_tournament_u32, items.data_ptr(), winv.data_ptr(),
-            slotc.data_ptr(), out.data_ptr(), n, P, m,
-            int(bool(return_positions)), device=dev)
+    _build.launch(lib.launch_tournament_u32, items.data_ptr(),
+                  winv.data_ptr(), slotc.data_ptr(), out.data_ptr(), n, P, m,
+                  int(bool(return_positions)), device=dev)
     launches_u32 += 1
     return out
 
@@ -110,9 +102,9 @@ def weighted_tournament_u64(lo: torch.Tensor, hi: torch.Tensor,
     slotc = slot_consts(m, seed, dev).to(torch.int32)
     out_lo = torch.empty((n, m), dtype=torch.int32, device=dev)
     out_hi = torch.empty((n, m), dtype=torch.int32, device=dev)
-    _launch(lib.launch_tournament_u64, lo.data_ptr(), hi.data_ptr(),
-            winv.data_ptr(), slotc.data_ptr(), out_lo.data_ptr(),
-            out_hi.data_ptr(), n, P, m, device=dev)
+    _build.launch(lib.launch_tournament_u64, lo.data_ptr(), hi.data_ptr(),
+                  winv.data_ptr(), slotc.data_ptr(), out_lo.data_ptr(),
+                  out_hi.data_ptr(), n, P, m, device=dev)
     launches_u64 += 1
     return out_lo, out_hi
 

@@ -1,0 +1,276 @@
+"""Parity of the plain merge / aggregation versions (kmerutils_tpu_torch.ops.
+merge, the CPU side of kernels K3-K6) with the JAX package's Pallas kernels
+in interpret mode.
+
+The same numpy-seeded entries go to both, in each package's own layout: the
+JAX kernels take u32 words (keys split into (hi, lo) for u64, sign-flipped
+and persistent for K3/K4), the port takes unsigned keys in int32 / int64
+and the coordinate as one int64 ``read << 32 | pos``.  Keys include values
+>= 2^31 and >= 2^63.
+
+Tolerance: exact.  K5 (stable, A first) and K4/K6 (one entry per key) are
+compared entry by entry; K3 after sorting entries by (key, payload), since
+the order within a run of equal keys is free.  The CUDA kernels themselves
+are compared with these plain versions, exactly, on the card by
+chip_smoke.py.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from kmerutils_tpu.ops import merge_pallas as mp
+from kmerutils_tpu_torch.ops import merge as M
+
+FLIP = np.uint32(0x80000000)
+M32 = np.uint64(0xFFFFFFFF)
+
+
+def rand_keys(rng, n, wide, n_distinct=None, top=None):
+    """n ascending unsigned keys, a third of them with the top bit set;
+    ``n_distinct`` draws them from a small pool (ties)."""
+    bits = 64 if wide else 32
+    hi = np.uint64((1 << bits) - 17) if top is None else np.uint64(top)
+    pool_n = n if n_distinct is None else n_distinct
+    pool = rng.integers(1, hi, size=pool_n, dtype=np.uint64)
+    pool[: pool_n // 3] |= np.uint64(1 << (bits - 1))
+    pool = np.minimum(pool, hi)
+    keys = np.sort(rng.choice(pool, size=n) if n_distinct else pool)
+    return keys if wide else keys.astype(np.uint32)
+
+
+def rand_words(rng, n):
+    return rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+
+
+def key_words(keys, wide):
+    """u32 keys -> [key]; u64 keys -> [hi, lo] (the JAX compare words)."""
+    if not wide:
+        return [keys.astype(np.uint32)]
+    return [(keys >> np.uint64(32)).astype(np.uint32),
+            (keys & M32).astype(np.uint32)]
+
+
+def port_key(keys, wide):
+    return torch.from_numpy(keys.view(np.int64) if wide
+                            else keys.astype(np.uint32).view(np.int32))
+
+
+def port_crd(chi, clo):
+    return torch.from_numpy(((chi.astype(np.uint64) << np.uint64(32))
+                             | clo).view(np.int64))
+
+
+def from_port(key, cnt, crd, n, wide):
+    """The port's entries [0, n) as JAX u32 word arrays."""
+    k = key[:n].numpy()
+    words = key_words(k.view(np.uint64) if wide else k.view(np.uint32), wide)
+    if cnt is not None:
+        words.append(cnt[:n].numpy().view(np.uint32))
+    if crd is not None:
+        c = crd[:n].numpy().view(np.uint64)
+        words += [(c >> np.uint64(32)).astype(np.uint32),
+                  (c & M32).astype(np.uint32)]
+    return words
+
+
+def sort_rows(words):
+    """Entries (columns of words) sorted lexicographically."""
+    order = np.lexsort(words[::-1])
+    return [w[order] for w in words]
+
+
+def to_persistent(words, ncmp, capacity, window, rng):
+    """Raw u32 entry words -> the JAX table's kernel-native form: compare
+    words flipped, physical length (n_tiles + 2) * T, random garbage past
+    the live prefix."""
+    T = window - 2048
+    lp = (-(-capacity // T) + 2) * T
+    out = []
+    for j, x in enumerate(words):
+        full = rand_words(rng, lp)
+        full[: len(x)] = x
+        if j < ncmp:
+            full ^= FLIP
+        out.append(jnp.asarray(full.view(np.int32)))
+    return tuple(out)
+
+
+def to_batch_kernel(words, ncmp, window):
+    """Raw u32 batch words -> the JAX fold kernel's reversed b-side form."""
+    nb_p = -(-len(words[0]) // 1024) * 1024
+    out = []
+    for j, x in enumerate(words):
+        full = np.full(nb_p + window, 0xFFFFFFFF, np.uint32)
+        full[: len(x)] = x
+        if j < ncmp:
+            full ^= FLIP
+        out.append(jnp.asarray(full[::-1].copy().view(np.int32)))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("na,nb,wide,with_crd,n_distinct", [
+    (1000, 777, False, False, 300),     # many ties across A and B
+    (3000, 2500, True, True, None),
+    (2048, 0, False, True, None),       # empty B
+])
+def test_merge_sorted_matches_jax(na, nb, wide, with_crd, n_distinct):
+    rng = np.random.default_rng(na + nb)
+    ka = rand_keys(rng, na, wide, n_distinct and n_distinct // 2)
+    kb = rand_keys(rng, nb, wide, n_distinct and n_distinct // 2) \
+        if nb else ka[:0]
+    ca = [rand_words(rng, na), rand_words(rng, na)]
+    cb = [rand_words(rng, nb), rand_words(rng, nb)]
+    ncmp = 2 if wide else 1
+    a_words = key_words(ka, wide) + (ca if with_crd else [])
+    b_words = key_words(kb, wide) + (cb if with_crd else [])
+    want = mp.merge_sorted_u32(tuple(a_words), tuple(b_words), ncmp=ncmp,
+                               window=4096)
+    key, crd = M.merge_sorted(port_key(ka, wide),
+                              port_crd(*ca) if with_crd else None,
+                              port_key(kb, wide),
+                              port_crd(*cb) if with_crd else None)
+    n = na + nb
+    got = from_port(key, None, crd, n, wide)
+    assert key.numel() == n
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w)[:n])
+
+
+@pytest.mark.parametrize("used,nb,wide,with_crd,capacity", [
+    (5000, 3000, True, True, 9000),
+    (900, 800, False, False, 1024),     # past capacity: largest keys drop
+    (0, 500, True, False, 4000),        # empty table
+    (1200, 0, False, True, 4000),       # empty batch
+])
+def test_merge_fold_matches_jax(used, nb, wide, with_crd, capacity):
+    rng = np.random.default_rng(used * 7 + nb)
+    ncmp = 2 if wide else 1
+    ka = rand_keys(rng, used, wide)
+    kb = rand_keys(rng, nb, wide)
+    cnt = rng.integers(1, 1 << 32, size=used, dtype=np.uint64).astype(
+        np.uint32)
+    ca = [rand_words(rng, used), rand_words(rng, used)]
+    cb = [rand_words(rng, nb), rand_words(rng, nb)]
+    a_words = key_words(ka, wide) + [cnt] + (ca if with_crd else [])
+    b_words = key_words(kb, wide) + [np.ones(nb, np.uint32)] \
+        + (cb if with_crd else [])
+    window = 4096
+    outs = mp.merge_fold_i32(to_persistent(a_words, ncmp, capacity, window,
+                                           rng),
+                             to_batch_kernel(b_words, ncmp, window), used, nb,
+                             ncmp=ncmp, capacity=capacity, window=window)
+    n = min(used + nb, capacity)
+    want = []
+    for j, o in enumerate(outs):
+        w = np.asarray(o)[:n].view(np.uint32)
+        want.append(w ^ FLIP if j < ncmp else w.copy())
+
+    # the port's table: live prefix, garbage behind it
+    t_key = torch.cat([port_key(ka, wide), port_key(
+        rand_keys(rng, 50, wide), wide)])
+    t_cnt = torch.from_numpy(np.concatenate(
+        [cnt, rand_words(rng, 50)]).view(np.int32))
+    t_crd = torch.cat([port_crd(*ca), port_crd(rand_words(rng, 50),
+                                               rand_words(rng, 50))]) \
+        if with_crd else None
+    key, c, crd, n_out = M.merge_fold(
+        t_key, t_cnt, t_crd, used, port_key(kb, wide),
+        port_crd(*cb) if with_crd else None, capacity)
+    assert n_out == n and key.numel() == capacity
+    got = from_port(key, c, crd, n, wide)
+    for g, w in zip(sort_rows(got), sort_rows(want)):
+        np.testing.assert_array_equal(g, w)
+    # ascending keys over the merged prefix
+    k = key[:n].numpy()
+    k = k.view(np.uint64) if wide else k.view(np.uint32)
+    assert np.all(k[:-1] <= k[1:])
+
+
+def agg_inputs(rng, n, wide, with_crd):
+    """Sorted entries with heavy duplication, 1 % of counts near 2^32 (so
+    sums saturate), random coordinates."""
+    keys = rand_keys(rng, n, wide, n_distinct=max(n // 4, 2))
+    cnt = rng.integers(1, 10, size=n).astype(np.uint32)
+    cnt[rng.random(n) < 0.01] = 0xFFFFFFF0
+    crd = [rand_words(rng, n), rand_words(rng, n)] if with_crd else []
+    return keys, cnt, crd
+
+
+@pytest.mark.parametrize("n,wide,with_crd,lo,hi", [
+    (5000, True, True, 2, 5),
+    (3000, False, False, 1, None),
+    (4096, False, True, 1, None),
+    (0, False, False, 1, None),
+])
+def test_aggregate_fold_matches_jax(n, wide, with_crd, lo, hi):
+    rng = np.random.default_rng(n + 11)
+    ncmp = 2 if wide else 1
+    keys, cnt, crd = agg_inputs(rng, n, wide, with_crd)
+    words = key_words(keys, wide) + [cnt] + crd
+    capacity, window = 6000, 4096
+    outs, n_live = mp.aggregate_fold_i32(
+        to_persistent(words, ncmp, capacity, window, rng), n, kw=ncmp,
+        coords=with_crd, capacity=capacity, window=window, lo=lo, hi=hi,
+        tile=1024)
+    n_live = int(n_live)
+    want = []
+    for j, o in enumerate(outs):
+        w = np.asarray(o)[:n_live].view(np.uint32)
+        want.append(w ^ FLIP if j < ncmp else w.copy())
+
+    pad = 100
+    t_key = torch.cat([port_key(keys, wide),
+                       port_key(rand_keys(rng, pad, wide), wide)])
+    t_cnt = torch.from_numpy(np.concatenate([cnt, rand_words(rng, pad)])
+                             .view(np.int32))
+    t_crd = torch.cat([port_crd(*crd), port_crd(rand_words(rng, pad),
+                                                rand_words(rng, pad))]) \
+        if with_crd else None
+    key, c, r, got_n = M.aggregate_fold(t_key, t_cnt, t_crd, n, lo, hi)
+    assert got_n == n_live and key.numel() == n + pad
+    for g, w in zip(from_port(key, c, r, n_live, wide), want):
+        np.testing.assert_array_equal(g, w)
+    if n and hi is None:
+        assert (c[:got_n].numpy().view(np.uint32) == 0xFFFFFFFF).any()
+
+
+@pytest.mark.parametrize("m,n_dead,wide,with_crd,lo,hi", [
+    (5000, 1000, True, True, 1, None),
+    (4000, 700, False, True, 2, 6),
+    (3000, 3000, False, False, 1, None),   # all dead
+])
+def test_aggregate_compact_matches_jax(m, n_dead, wide, with_crd, lo, hi):
+    rng = np.random.default_rng(m + n_dead)
+    keys, cnt, crd = agg_inputs(rng, m - n_dead, wide, with_crd)
+    ones32 = np.full(n_dead, 0xFFFFFFFF, np.uint32)
+    words = [np.concatenate([w, ones32])
+             for w in key_words(keys, wide) + [cnt] + crd]
+    outs, n_live = mp.aggregate_compact_u32(
+        tuple(words), kw=2 if wide else 1, coords=with_crd, lo=lo, hi=hi,
+        tile=1024)
+    want = [np.asarray(o) for o in outs]
+
+    all_ones = np.concatenate([keys, np.full(
+        n_dead, (1 << 64) - 1 if wide else 0xFFFFFFFF, keys.dtype)])
+    key, c, r, got_n = M.aggregate_compact(
+        port_key(all_ones, wide), torch.from_numpy(words[len(words) - 1 - (
+            2 if with_crd else 0)].view(np.int32)),
+        port_crd(words[-2], words[-1]) if with_crd else None, lo, hi)
+    assert got_n == int(n_live)
+    for g, w in zip(from_port(key, c, r, m, wide), want):
+        np.testing.assert_array_equal(g, w)        # tail all ones included
+
+
+def test_wrappers_validate_inputs():
+    k = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="cnt"):
+        M.aggregate_fold(k, torch.zeros(8, dtype=torch.int64), None, 8)
+    with pytest.raises(ValueError, match="used"):
+        M.aggregate_fold(k, torch.zeros(8, dtype=torch.int32), None, 9)
+    with pytest.raises(ValueError, match="key type"):
+        M.merge_sorted(k, None, torch.zeros(3, dtype=torch.int64), None)
+    with pytest.raises(ValueError, match="coordinates"):
+        M.merge_fold(k, torch.zeros(8, dtype=torch.int32), None, 0, k,
+                     torch.zeros(8, dtype=torch.int64), 16)
