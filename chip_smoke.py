@@ -33,10 +33,28 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    bacterial-scale FASTQ (4.6 Mbase genome, 10,000 reads from both strands,
    6 % substitutions); every dump is compared in full with a numpy oracle
    computed from the generated reads; the launch counters must show K3, K4
-   and K5 ran; the --count run is repeated three times for its wall time.
+   and K5 ran; the --count run is repeated three times for its wall time;
+9. K7 (compact_live) vs its plain version on the card, exact, at 64 Mi
+   entries with 1 and 5 arrays and 10 / 50 / 90 % live, each timed; then
+   the exact-counting path (count/exact.py: ``count_batch``,
+   ``count_batch_detailed``, ``unique_kmer_coords``, densified on the card
+   through K7) on the bench batch at k=21 and on reads holding the k=32
+   keys T^16A^16 and A^16T^16, against a numpy oracle; K7's launch counter
+   must show it ran; K7 is timed again at that path's shape;
+10. the rest of ``datasketcher`` through the CLI on ``cuda`` over phase 5's
+   ONT-like file: ``-b 512`` (the block dump read back, live blocks exactly
+   those with a valid k-mer, 64 sampled reads recomputed through the plain
+   path, K1's counter > 0), ``ann -n 10 --engine brute`` (64 sampled rows
+   equal to a numpy top-10 with the tie rule) and ``ann -n 10`` through
+   the native HNSW index (graph file written, no self hit, no padding,
+   recall@10 against the exact search), block ``ann`` (exact and HNSW)
+   over the file's first 1,000 records, and ``Sketcher.sketch_collection``
+   at the bench shape (k=21, one row of ~6.1 M distinct keys) equal to the
+   plain path, timed with K2 alone against its plain version.
 
-The last three lines are the card's name and power limit, the kernels'
-JSON record and
+The temporary files of phases 5-10 live in one directory, removed at the
+end.  The last three lines are the card's name and power limit, the
+kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero before printing either.
 """
@@ -60,6 +78,7 @@ K3_TPU = "kmerutils_tpu/ops/merge_pallas.py:458"
 K4_TPU = "kmerutils_tpu/ops/merge_pallas.py:967"
 K5_TPU = "kmerutils_tpu/ops/merge_pallas.py:238"
 K6_TPU = "kmerutils_tpu/ops/merge_pallas.py:839"
+K7_TPU = "kmerutils_tpu/ops/merge_pallas.py:1101"
 SOURCE = "kmerutils_tpu_torch/csrc/tournament.cu"
 MERGE_SOURCE = "kmerutils_tpu_torch/csrc/merge.cu"
 ACGT = np.frombuffer(b"ACGT", np.uint8)
@@ -334,7 +353,7 @@ def slice_runs(torch, rng, tmp: str, card: str, dev,
                       "mbases": mbases,
                       "mbases_per_s": [mbases / w for w in walls],
                       "card": card}), flush=True)
-    return launches
+    return launches, fq8, clean8
 
 
 # ---------------------------------------------------------------------------
@@ -732,6 +751,358 @@ def counting_runs(torch, rng, tmp: str, card: str, dev,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: K7 and the exact-counting path
+# ---------------------------------------------------------------------------
+
+PALINDROMES = ["GGG" + "T" * 16 + "A" * 16 + "CCCCC",
+               "C" + "A" * 16 + "T" * 16 + "GG"]
+
+
+def live_arrays(torch, gen, n: int, narr: int, frac: float, dev):
+    """narr int32 arrays of n entries made on the card from ``gen``: a
+    share ``frac`` of live entries (first word not all ones, values over
+    the whole u32 range), the rest dead (first word -1)."""
+    first = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), dtype=torch.int32,
+                          device=dev, generator=gen)
+    first = torch.where(first == -1, 0, first)
+    dead = torch.rand(n, device=dev, generator=gen) >= frac
+    first = torch.where(dead, -1, first)
+    rest = [torch.randint(-(1 << 31), (1 << 31) - 1, (n,), dtype=torch.int32,
+                          device=dev, generator=gen)
+            for _ in range(narr - 1)]
+    return (first, *rest)
+
+
+def k7_check(torch, arrs, what: str):
+    """K7 vs its plain version on ``arrs``: (mismatching entries, max |diff|
+    of the u32 words); fails on any difference."""
+    from kmerutils_tpu_torch.ops import merge as M
+    got, n = M.compact_live(arrs)
+    want, n_ref = M.compact_live_ref(arrs)
+    sync(torch, arrs[0].device)
+    check(n == n_ref, f"K7 n_live {n} != {n_ref} ({what})")
+    bad, err = compare(torch, got, want, arrs[0].numel())
+    check(bad == 0, f"K7 != plain ({what}): {bad} mismatches")
+    return bad, err
+
+
+def dense_oracle(reads, k: int, offset: int = 0):
+    """numpy oracle of the dense exact counts: (keys, counts, first read,
+    first position) of the distinct canonical k-mers, ascending."""
+    can, rid, pos = oracle_kmers(reads, k)
+    keys, first, counts = np.unique(can, return_index=True,
+                                    return_counts=True)
+    return keys, counts, rid[first] + offset, pos[first]
+
+
+def exact_path_checks(torch, batch, reads, k: int, what: str) -> int:
+    """count/exact.py on the card, densified through K7, against the numpy
+    oracle: compact(count_batch), compact_detailed, compact_unique."""
+    from kmerutils_tpu_torch.count import exact
+    keys, counts, rn, ps = dense_oracle(reads, k, offset=3)
+    got = exact.compact_detailed(*exact.count_batch_detailed(batch, k, 3)[:4])
+    ok = all(np.array_equal(g.astype(np.uint64), w.astype(np.uint64))
+             for g, w in zip(got, (keys, counts, rn, ps)))
+    ck, cc = exact.compact(exact.count_batch(batch, k))
+    ok = ok and np.array_equal(ck.astype(np.uint64), keys) \
+        and np.array_equal(cc, counts)
+    one = counts == 1
+    uk, ur, up = exact.compact_unique(*exact.unique_kmer_coords(batch, k,
+                                                                3)[:3])
+    ok = ok and np.array_equal(uk.astype(np.uint64), keys[one]) \
+        and np.array_equal(ur, rn[one]) and np.array_equal(up, ps[one])
+    print(f"{what}: {keys.size} distinct {k}-mers ({int(one.sum())} unique) "
+          f"densified through K7: {'equal' if ok else 'DIFFERENT'} to the "
+          f"numpy oracle", flush=True)
+    check(ok, f"{what}: exact counts != numpy oracle")
+    return int(keys.size)
+
+
+def k7_and_exact(torch, rng, card: str, dev="cuda", n_syn: int = 64 << 20,
+                 bench=(1024, 6000)):
+    phase("9 K7 vs plain (exact) and the exact-counting path")
+    from kmerutils_tpu_torch.base.sequence import pack_ascii_reads, pack_codes
+    from kmerutils_tpu_torch.count import exact
+    from kmerutils_tpu_torch.ops import merge as M
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    res = {"mismatches": 0, "max_abs_err": 0, "shapes": []}
+
+    def record(arrs, what):
+        bad, err = k7_check(torch, arrs, what)
+        ms, pms, runs = turns(torch, lambda: M.compact_live(arrs),
+                              lambda: M.compact_live_ref(arrs))
+        res["mismatches"] += bad
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["shapes"].append({"shape": what, "ms": ms, "plain_ms": pms})
+        print(json.dumps({"timing": "compact_live", "shape": what,
+                          "mismatches": bad, "ms_plain_kern_kern_plain": runs,
+                          "card": card}), flush=True)
+        return ms, pms
+
+    for narr in (1, 5):
+        for frac in (0.1, 0.5, 0.9):
+            arrs = live_arrays(torch, gen, n_syn, narr, frac, dev)
+            record(arrs, f"{n_syn} entries x {narr} arrays, {frac:.0%} live")
+            del arrs
+    n, L = bench
+    codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
+    bench = pack_codes(codes, np.full(n, L, np.int32), device=dev)
+    pal_codes = [rng.integers(0, 4, size=int(ln), dtype=np.uint8)
+                 for ln in rng.integers(40, 400, size=62)]
+    enc = {c: i for i, c in enumerate("ACGT")}
+    pal_codes += [np.array([enc[c] for c in r], np.uint8) for r in PALINDROMES]
+    pal = pack_ascii_reads(["".join("ACGT"[c] for c in r) for r in pal_codes],
+                           device=dev)
+
+    # --- the main path: counts from 0 to what count/exact.py launched ---
+    M.reset_launches()
+    distinct = exact_path_checks(torch, bench, list(codes), 21,
+                                 f"bench batch {n} x {L}, k=21")
+    exact_path_checks(torch, pal, pal_codes, 32,
+                      "64 reads with T^16A^16 and A^16T^16, k=32")
+    launches = M.launches_live
+    # -----------------------------------------------------------------------
+    print(f"K7 launches on the count/exact.py path: {launches}", flush=True)
+    check(launches >= 6, f"K7 launched {launches} < 6 times on that path")
+    keys, _ = exact.compact(exact.count_batch(pal, 32))
+    check({0xFFFFFFFF00000000, 0xFFFFFFFF} <= set(keys.tolist()),
+          "a k=32 key with an all-ones half was lost")
+
+    # K7 at the path's own shape: compact_detailed of the bench batch
+    kd = exact.count_batch_detailed(bench, 21)
+    arrs = ((kd[1] - 1).contiguous(), kd[0].to(torch.int32),
+            (kd[0] >> 32).to(torch.int32), kd[2].contiguous(),
+            kd[3].contiguous())
+    ms, pms = record(arrs, f"count_batch_detailed k=21 bench batch "
+                           f"({arrs[0].numel()} entries, {distinct} live) "
+                           f"x 5 arrays")
+    res.update(ms=ms, plain_ms=pms, launches=launches)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 10: block mode, ann and the whole-collection sketch
+# ---------------------------------------------------------------------------
+
+def plain_blocks(torch, codes_list, k: int, m: int, bs: int, dev):
+    """Per read, its live blocks' signatures (u32[n_live, m]) through the
+    plain path on the card: same hashing, per-block multiplicities, plain
+    tournament (k <= 16)."""
+    from kmerutils_tpu_torch.base.sequence import pack_codes
+    from kmerutils_tpu_torch.ops import tournament as T
+    from kmerutils_tpu_torch.sketch import probminhash
+    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
+    L = max(c.size for c in codes_list)
+    codes = np.zeros((len(codes_list), L), np.uint8)
+    for i, c in enumerate(codes_list):
+        codes[i, : c.size] = c
+    batch = pack_codes(codes, np.array([c.size for c in codes_list],
+                                       np.int32), device=dev)
+    items, valid = hashed_kmers(batch, k)
+    n, P = items.shape
+    nb = -(-P // bs)
+    pad = torch.nn.functional.pad
+    items = pad(items, (0, nb * bs - P)).reshape(n * nb, bs)
+    valid = pad(valid, (0, nb * bs - P)).reshape(n * nb, bs)
+    s, winv, is_real = probminhash.sort_with_multiplicities(items, valid)
+    sig = T.weighted_tournament_ref(
+        s.contiguous(), torch.where(is_real, winv, 0.0).contiguous(), m)
+    sig = sig.cpu().numpy().view(np.uint32).reshape(n, nb, m)
+    live = is_real.any(dim=1).cpu().numpy().reshape(n, nb)
+    return [sig[i][live[i]] for i in range(n)]
+
+
+def topk_oracle(sigs: np.ndarray, queries, k: int):
+    """numpy top-k of the given query rows over all rows: equal-slot count
+    descending, then index ascending, self excluded; (ids, counts)."""
+    cnt = (sigs[queries][:, None, :] == sigs[None, :, :]).sum(axis=2)
+    cnt[np.arange(len(queries)), queries] = -1
+    idx = np.arange(sigs.shape[0])
+    order = np.array([np.lexsort((idx, -c))[:k] for c in cnt])
+    return order, np.take_along_axis(cnt, order, axis=1)
+
+
+def check_ann_dump(path: str, n: int, k: int, read_of=None):
+    """Invariants of a neighbour table: shape, no self hit, no neighbour
+    outside the rows, no hit from the query's own read (block mode)."""
+    from kmerutils_tpu_torch.ann import read_neighbor_dump
+    nn, sim = read_neighbor_dump(path)
+    check(nn.shape == (n, k), f"{path}: shape {nn.shape} != {(n, k)}")
+    live = sim >= 0
+    q = np.broadcast_to(np.arange(n)[:, None], nn.shape)
+    check(bool((nn[live] < n).all()) and not (nn[live] == q[live]).any(),
+          f"{path}: a self hit or a neighbour outside the table")
+    if read_of is not None:
+        check(not (read_of[nn[live]] == read_of[q[live]]).any(),
+              f"{path}: a hit from the query's own read")
+    return nn, sim
+
+
+def datasketcher_run(argv, what: str):
+    from kmerutils_tpu_torch.cli import datasketcher
+    t0 = time.perf_counter()
+    rc = datasketcher.main(argv)
+    wall = time.perf_counter() - t0
+    print(f"{what}: rc {rc} in {wall:.3f} s", flush=True)
+    check(rc == 0, f"{what} returned non-zero")
+    return wall
+
+
+def rest_of_datasketcher(torch, rng, tmp: str, card: str, dev, fq8: str,
+                         clean8, n_block_ann: int = 1000, m: int = 200,
+                         bench=(1024, 6000)):
+    phase("10 the rest of datasketcher on cuda: -b, ann, block ann, "
+          "sketch_collection")
+    from kmerutils_tpu_torch.base.sequence import pack_codes
+    from kmerutils_tpu_torch.count import exact
+    from kmerutils_tpu_torch.io import formats
+    from kmerutils_tpu_torch.ops import tournament as T
+    from kmerutils_tpu_torch.sketch.jaccard import Sketcher, hashed_kmers
+    from kmerutils_tpu_torch.sketch.params import SeqSketcherParams
+    out = {"card": card}
+    for d in ("blk", "brute", "hnsw", "bann", "bann_hnsw"):
+        os.makedirs(os.path.join(tmp, d))
+    base = ["-f", fq8, "-s", str(m), "-k", "8", "--device", str(dev)]
+
+    # --- the main path: counts from 0 to what the block run launched ---
+    T.launches_u32 = T.launches_u64 = 0
+    bdump = os.path.join(tmp, "blk", "sigs.bin")
+    out["block_wall_s"] = datasketcher_run(
+        base + ["-b", "512", "-d", bdump], "datasketcher -b 512 -k 8")
+    launches = T.launches_u32
+    # -----------------------------------------------------------------------
+    print(f"K1 launches on the -b 512 path: {launches}", flush=True)
+    check(launches > 0, "K1 was not launched on the block path")
+    kk, mm, bs, per_seq = formats.read_block_signature_dump(bdump)
+    check((kk, mm, bs) == (8, m, 512) and len(per_seq) == len(clean8),
+          f"block dump header {(kk, mm, bs)}, {len(per_seq)} reads")
+    n_blocks = [len(b) for _, b in per_seq]
+    want_blocks = [-(-(c.size - 8 + 1) // 512) for c in clean8]
+    check([s for s, _ in per_seq] == list(range(len(clean8)))
+          and n_blocks == want_blocks,
+          "live blocks != the blocks with a valid k-mer")
+    pick = np.sort(rng.choice(len(clean8), size=64, replace=False))
+    want = plain_blocks(torch, [clean8[i] for i in pick], 8, m, 512, dev)
+    bad = sum(int((np.asarray(per_seq[i][1]) != w).sum())
+              for i, w in zip(pick, want))
+    print(f"block dump: {sum(n_blocks)} blocks of {len(per_seq)} reads; 64 "
+          f"sampled reads vs the plain path on the card: {bad} mismatching "
+          f"slots", flush=True)
+    check(bad == 0, "block dump != plain path on sampled reads")
+
+    # ann over the per-read signatures: exact search, then the native index
+    brute = os.path.join(tmp, "brute", "sigs.bin")
+    out["ann_brute_wall_s"] = datasketcher_run(
+        base + ["-d", brute, "ann", "-n", "10", "--engine", "brute"],
+        "datasketcher ann -n 10 --engine brute")
+    sigs = formats.read_signature_dump(brute)[2]
+    n = sigs.shape[0]
+    nn_b, sim_b = check_ann_dump(brute + "-ann", n, 10)
+    q = np.sort(rng.choice(n, size=64, replace=False))
+    ids, cnt = topk_oracle(sigs, q, 10)
+    inv = np.float32(1.0 / m)
+    ok = np.array_equal(nn_b[q], ids) and np.array_equal(
+        sim_b[q], cnt.astype(np.float32) * inv)
+    print(f"brute ann: 64 sampled reads vs numpy top-10 (count desc, index "
+          f"asc): {'equal' if ok else 'DIFFERENT'}", flush=True)
+    check(ok, "brute neighbours != numpy top-k")
+    hn = os.path.join(tmp, "hnsw", "sigs.bin")
+    out["ann_hnsw_wall_s"] = datasketcher_run(
+        base + ["-d", hn, "ann", "-n", "10"], "datasketcher ann -n 10 (hnsw)")
+    check(os.path.exists(hn + "-ann.hnsw"), "no -ann.hnsw graph file")
+    nn_h, sim_h = check_ann_dump(hn + "-ann", n, 10)
+    check(bool((sim_h > -1).all()), "hnsw table holds -1 padding")
+    got_cnt = (sigs[np.arange(n)[:, None]] == sigs[nn_h]).sum(axis=2)
+    kth = np.rint(sim_b[:, -1] * m).astype(np.int64)
+    out["hnsw_recall_at_10_ids"] = float(np.mean(
+        [len(set(a) & set(b)) / 10 for a, b in zip(nn_h.tolist(),
+                                                   nn_b.tolist())]))
+    out["hnsw_recall_at_10_ties"] = float((got_cnt >= kth[:, None]).mean())
+    print(f"hnsw recall@10 against the exact search: "
+          f"{out['hnsw_recall_at_10_ids']:.4f} by id, "
+          f"{out['hnsw_recall_at_10_ties']:.4f} counting ties at the 10th",
+          flush=True)
+
+    # block ann over the file's first reads
+    fq_b = os.path.join(tmp, "first.fastq")
+    n_clean = 0
+    with open(fq8, "rb") as src, open(fq_b, "wb") as dst:
+        for _ in range(n_block_ann):
+            rec = [src.readline() for _ in range(4)]
+            n_clean += rec[0].startswith(b"@read")
+            dst.write(b"".join(rec))
+    bb = os.path.join(tmp, "bann", "sigs.bin")
+    out["block_ann_brute_wall_s"] = datasketcher_run(
+        ["-f", fq_b, "-s", str(m), "-k", "8", "-b", "512", "-d", bb,
+         "--device", str(dev), "ann", "-n", "10", "--engine", "brute"],
+        f"datasketcher -b 512 ann --engine brute ({n_block_ann} records)")
+    per_seq_b = formats.read_block_signature_dump(bb)[3]
+    check(len(per_seq_b) == n_clean, "block ann dump lost reads")
+    who = np.fromfile(bb + "-ann.blocks", dtype=np.uint32).reshape(-1, 2)
+    check(who.tolist() == [[s, j] for s, b in per_seq_b
+                           for j in range(len(b))], "-ann.blocks mismatch")
+    bsigs = np.concatenate([np.asarray(b) for _, b in per_seq_b])
+    read_of = who[:, 0].astype(np.int64)
+    nn_bb, sim_bb = check_ann_dump(bb + "-ann", who.shape[0], 10, read_of)
+    qb = np.sort(rng.choice(who.shape[0], size=32, replace=False))
+    ids, cnt = topk_oracle(bsigs, qb, 18)
+    bad = 0
+    for row, (i, c) in enumerate(zip(ids, cnt)):
+        keep = read_of[i] != read_of[qb[row]]
+        wi, wc = i[keep][:10], c[keep][:10]
+        ws = wc.astype(np.float32) * inv
+        bad += int(not (np.array_equal(nn_bb[qb[row], : wi.size], wi)
+                        and np.array_equal(sim_bb[qb[row], : wi.size], ws)
+                        and (sim_bb[qb[row], wi.size:] == -1).all()))
+    print(f"block ann: {who.shape[0]} blocks of {n_clean} reads; 32 sampled "
+          f"blocks vs numpy: {bad} differ", flush=True)
+    check(bad == 0, "block ann neighbours != numpy oracle")
+    bh = os.path.join(tmp, "bann_hnsw", "sigs.bin")
+    out["block_ann_hnsw_wall_s"] = datasketcher_run(
+        ["-f", fq_b, "-s", str(m), "-k", "8", "-b", "512", "-d", bh,
+         "--device", str(dev), "ann", "-n", "10"],
+        f"datasketcher -b 512 ann (hnsw, {n_block_ann} records)")
+    check(os.path.exists(bh + "-ann.hnsw"), "no block -ann.hnsw graph file")
+    check_ann_dump(bh + "-ann", who.shape[0], 10, read_of)
+
+    # the whole-collection sketch at the bench shape (one row, k = 21)
+    nr, L = bench
+    codes = rng.integers(0, 4, size=(nr, L), dtype=np.uint8)
+    batch = pack_codes(codes, np.full(nr, L, np.int32), device=dev)
+    sk = Sketcher(SeqSketcherParams(kmer_size=21, sketch_size=m))
+    T.launches_u64 = 0
+    got = sk.sketch_collection(batch)
+    k2 = T.launches_u64
+    items, valid = hashed_kmers(batch, 21)
+    kc = exact.count_from_values(
+        torch.where(valid.reshape(-1), items.reshape(-1), -1))
+    w = torch.where(kc.keys != -1, kc.counts, 0)[None, :]
+    winv = torch.where(w > 0, 1.0 / w.clamp(min=1).to(torch.float32),
+                       0.0).contiguous()
+    lo = kc.keys.to(torch.int32)[None, :].contiguous()
+    hi = (kc.keys >> 32).to(torch.int32)[None, :].contiguous()
+    plo, phi = T.weighted_tournament_u64_ref(lo, hi, winv, m)
+    want = (phi[0].to(torch.int64) << 32) | (plo[0].to(torch.int64)
+                                             & 0xFFFFFFFF)
+    sync(torch, dev)
+    distinct = int(kc.n_distinct)
+    check(k2 == 1, f"K2 launched {k2} times by sketch_collection, want 1")
+    check(torch.equal(got, want), "sketch_collection != plain path")
+    ms, pms, runs = turns(
+        torch, lambda: T.weighted_tournament_u64(lo, hi, winv, m),
+        lambda: T.weighted_tournament_u64_ref(lo, hi, winv, m), iters=3,
+        plain_iters=1)
+    out.update(collection_distinct=distinct,
+               collection_ms=cuda_ms(torch,
+                                     lambda: sk.sketch_collection(batch), 3),
+               collection_k2_ms=ms, collection_k2_plain_ms=pms,
+               collection_k2_runs=runs)
+    print(json.dumps({"timing": "phase10", **out}), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -755,11 +1126,13 @@ def main() -> int:
         err1 = k1_vs_plain(torch, rng, "cuda")
         err2 = k2_vs_plain(torch, rng, "cuda")
         with tempfile.TemporaryDirectory() as tmp:
-            launches = slice_runs(torch, rng, tmp, card, "cuda")
-        t = timings(torch, rng, card)
-        m = merge_kernels_vs_plain(torch, rng, card)
-        with tempfile.TemporaryDirectory() as tmp:
+            launches, fq8, clean8 = slice_runs(torch, rng, tmp, card, "cuda")
+            t = timings(torch, rng, card)
+            m = merge_kernels_vs_plain(torch, rng, card)
             launches.update(counting_runs(torch, rng, tmp, card, "cuda"))
+            k7 = k7_and_exact(torch, rng, card)
+            torch.cuda.empty_cache()
+            rest_of_datasketcher(torch, rng, tmp, card, "cuda", fq8, clean8)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -783,6 +1156,13 @@ def main() -> int:
             "mismatches": r["mismatches"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"][0], "plain_ms": r["plain_ms"][0],
             "ms_each_shape": r["ms"], "plain_ms_each_shape": r["plain_ms"]})
+    kernels.append({
+        "name": "compact_live", "route": "cuda", "source": MERGE_SOURCE,
+        "replaces": K7_TPU, "launches": k7["launches"],
+        "mismatches": k7["mismatches"], "max_abs_err": k7["max_abs_err"],
+        "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+        "ms_each_shape": [r["ms"] for r in k7["shapes"]],
+        "plain_ms_each_shape": [r["plain_ms"] for r in k7["shapes"]]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -73,6 +73,11 @@ def _declare(lib) -> None:
     lib.launch_aggregate.restype = ci
     lib.launch_aggregate.argtypes = [ci, ci, ci, vp, vp, vp, ll, cu, cu,
                                      vp, vp, vp, vp, vp]
+    vpp = ctypes.POINTER(vp)
+    lib.compact_scratch_words.restype = ll
+    lib.compact_scratch_words.argtypes = [ll]
+    lib.launch_compact.restype = ci
+    lib.launch_compact.argtypes = [ci, vpp, vpp, ll, vp, vp]
 
 
 def launch(fn, *args, device) -> None:

@@ -86,3 +86,14 @@ def canonical_kmers(batch: ReadBatch, k: int):
         km, valid = kmers_u64(batch, k)
         can, strand = canonical_u64(km, k)
     return can, valid, strand
+
+
+def kmer_coordinates(batch: ReadBatch, k: int, read_num_offset: int = 0):
+    """(read_num, pos) of every k-mer slot, u32 values in int64[n, P]
+    (broadcast views): read_num = row + read_num_offset, pos = slot."""
+    P = max(batch.max_len - k + 1, 1)
+    n = batch.n_reads
+    rows = torch.arange(n, dtype=torch.int64, device=batch.device)
+    read_num = ((rows + read_num_offset) & M32)[:, None]
+    pos = torch.arange(P, dtype=torch.int64, device=batch.device)[None, :]
+    return read_num.expand(n, P), pos.expand(n, P)

@@ -6,6 +6,7 @@
 //   K5  merge_sorted_u32      (_merge_kernel, split merge_path_partition)
 //   K4  aggregate_fold_i32    (_aggfold_kernel, core _agg_tile_compute)
 //   K6  aggregate_compact_u32 (_aggcompact_kernel, the same core)
+//   K7  compact_live_u32      (_compact_kernel)
 //
 // Entries are struct-of-arrays: an unsigned key (uint32_t, or uint64_t for
 // k > 16), a uint32_t count, and optionally a uint64_t coordinate
@@ -44,6 +45,17 @@
 // K4 takes the live prefix [0, n) of a table; K6 a raw array whose dead
 // entries (key all ones) trail, and fills the output past n_live with all
 // ones.  Output and input are different buffers.
+//
+// Compaction (K7): K6's emit pass without aggregation.  A count kernel
+// gives each tile's live entries (a warp sum of each thread's kIpt flags),
+// the one-block scan turns them into offsets, and the emit kernel writes
+// each tile's live entries at its offset, ranked by a warp ballot per round
+// and one scan of the (round, warp) ballot counts, so the order is kept.
+// Each thread issues its kIpt loads of the liveness word before using any,
+// and a tile costs two barriers.  The TPU kernel's butterfly concentrator
+// and aligned DMA windows have no counterpart here.  It reads the liveness
+// word twice and every array once, and writes every array once: 64 Mi
+// entries of five arrays move ~2.9 GB, ~0.9 ms at 3.35 TB/s.
 //
 // What bounds them on this card: memory traffic.  Per entry the merge reads
 // and writes the key, count and coordinate once (plus a log2(n) binary
@@ -421,6 +433,112 @@ agg_emit_kernel(const K* __restrict__ key, const uint32_t* __restrict__ cnt,
   }
 }
 
+// ---------------------------------------------------------------------------
+// stable compaction (K7)
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxArrays = 5;
+constexpr int kWarps = kThreads / 32;
+
+struct CompactArrays {
+  const uint32_t* in[kMaxArrays];
+  uint32_t* out[kMaxArrays];
+};
+
+// The tile's entries j = r * kThreads + threadIdx.x (r < kIpt) of w, all
+// kIpt loads issued before any is used; entries past len read as dead.
+__device__ __forceinline__ void load_round_words(const uint32_t* w,
+                                                 long long start, int len,
+                                                 uint32_t (&v)[kIpt]) {
+#pragma unroll
+  for (int r = 0; r < kIpt; ++r) {
+    const int j = r * kThreads + (int)threadIdx.x;
+    v[r] = j < len ? w[start + j] : ~0u;
+  }
+}
+
+// Per tile of kTile entries: the number of live entries (in[0] != all ones).
+__global__ void __launch_bounds__(kThreads)
+compact_count_kernel(const uint32_t* __restrict__ live_word, long long n,
+                     long long* offs) {
+  __shared__ int s_warp[kWarps];
+  const int tid = (int)threadIdx.x;
+  const long long start = (long long)blockIdx.x * kTile;
+  const int len = (int)(n - start < kTile ? n - start : kTile);
+  uint32_t v[kIpt];
+  load_round_words(live_word, start, len, v);
+  int cnt = 0;
+#pragma unroll
+  for (int r = 0; r < kIpt; ++r) cnt += v[r] != ~0u ? 1 : 0;
+  cnt = __reduce_add_sync(0xFFFFFFFFu, cnt);
+  if ((tid & 31) == 0) s_warp[tid >> 5] = cnt;
+  __syncthreads();
+  if (tid == 0) {
+    int sum = 0;
+    for (int w = 0; w < kWarps; ++w) sum += s_warp[w];
+    offs[blockIdx.x] = sum;
+  }
+}
+
+// Each tile writes its live entries, in order, from its exclusive offset.
+// Round r of warp w holds the tile's entries r * kThreads + 32 w + lane; a
+// ballot per round gives each live entry its rank in the warp, and one scan
+// of the kIpt x kWarps ballot counts, round-major, gives each (round, warp)
+// its offset.  Output slots at or past the total live count that fall in
+// this tile's index range get all ones in every array.
+__global__ void __launch_bounds__(kThreads)
+compact_emit_kernel(CompactArrays a, int narr, long long n,
+                    const long long* __restrict__ offs, long long n_tiles) {
+  __shared__ int s_off[kIpt][kWarps];
+  const int tid = (int)threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long start = (long long)blockIdx.x * kTile;
+  const int len = (int)(n - start < kTile ? n - start : kTile);
+  uint32_t v[kIpt];
+  load_round_words(a.in[0], start, len, v);
+  unsigned ballot[kIpt];
+#pragma unroll
+  for (int r = 0; r < kIpt; ++r) {
+    ballot[r] = __ballot_sync(0xFFFFFFFFu, v[r] != ~0u);
+    if (lane == 0) s_off[r][warp] = __popc(ballot[r]);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int run = 0;
+    for (int r = 0; r < kIpt; ++r) {
+      for (int w = 0; w < kWarps; ++w) {
+        const int c = s_off[r][w];
+        s_off[r][w] = run;
+        run += c;
+      }
+    }
+  }
+  __syncthreads();
+  const long long base = offs[blockIdx.x];
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < kIpt; ++r) {
+    if (v[r] == ~0u) continue;
+    const long long i = start + r * kThreads + tid;
+    const long long o = base + s_off[r][warp] + __popc(ballot[r] & below);
+    a.out[0][o] = v[r];
+#pragma unroll
+    for (int q = 1; q < kMaxArrays; ++q) {
+      if (q < narr) a.out[q][o] = a.in[q][i];
+    }
+  }
+  const long long total = offs[n_tiles];
+  for (int j = tid; j < len; j += kThreads) {
+    const long long i = start + j;
+    if (i < total) continue;
+#pragma unroll
+    for (int q = 0; q < kMaxArrays; ++q) {
+      if (q < narr) a.out[q][i] = ~0u;
+    }
+  }
+}
+
 template <typename K, bool kCnt, bool kCrd>
 int merge_typed(const void* a_key, const void* a_cnt, const void* a_crd,
                 long long na, const void* b_key, const void* b_crd,
@@ -557,4 +675,39 @@ extern "C" int launch_aggregate(int key_bytes, int has_crd, int sentinel,
                                    st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// int64 words of scratch that launch_compact needs for n entries.
+extern "C" long long compact_scratch_words(long long n) {
+  return (n + kTile - 1) / kTile + 1;
+}
+
+// K7: stable compaction of narr (1-5) arrays of n u32 words.  An entry is
+// live when ins[0] is not all ones; outs receive the live entries first, in
+// order, and all ones after them.  ins and outs are host arrays of narr
+// device pointers; scratch holds compact_scratch_words(n) int64 words and
+// its last word receives the live count.
+extern "C" int launch_compact(int narr, void* const* ins, void* const* outs,
+                              long long n, void* scratch, void* stream) {
+  if (narr < 1 || narr > kMaxArrays) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaSuccess;
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  if (n_tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t st = (cudaStream_t)stream;
+  CompactArrays a = {};
+  for (int q = 0; q < narr; ++q) {
+    a.in[q] = (const uint32_t*)ins[q];
+    a.out[q] = (uint32_t*)outs[q];
+  }
+  long long* offs = (long long*)scratch;
+  compact_count_kernel<<<(unsigned)n_tiles, kThreads, 0, st>>>(a.in[0], n,
+                                                               offs);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  scan_kernel<<<1, kScanThreads, 0, st>>>(offs, n_tiles);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  compact_emit_kernel<<<(unsigned)n_tiles, kThreads, 0, st>>>(a, narr, n, offs,
+                                                              n_tiles);
+  return (int)cudaGetLastError();
 }

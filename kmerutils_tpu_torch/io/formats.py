@@ -15,6 +15,10 @@ Port of kmerutils_tpu/io/formats.py (all little-endian):
 * signature dump:
     u32 0xceabeadd | u32 sig_size (bytes) | u32 sketch_size | u32 kmer_size
     then the raw signature words of each read, in read order.
+* block signature dump:
+    u32 0xceabbadd | u32 sig_size (4) | u32 sketch_size | u32 kmer_size
+    | u32 block_size, then per read: u32 numseq | u32 n_blocks and per
+    block: u32 numseq | u32 block index | u32 signature words.
 
 Readers return numpy arrays and read records to EOF (the header count is
 approximate by design).
@@ -29,6 +33,7 @@ import numpy as np
 COUNTER_MULTIPLE = 0xCEA2BBFF
 COUNTER_UNIQUE = 0xCEA2BBDD
 MAGIC_SIG_DUMP = 0xCEABEADD
+MAGIC_BLOCKSIG_DUMP = 0xCEABBADD
 
 
 def write_signature_dump(fname: str, kmer_size: int, signatures) -> None:
@@ -53,6 +58,48 @@ def read_signature_dump(fname: str):
     if m and flat.size % m:
         raise ValueError("truncated signature dump")
     return kmer_size, m, flat.reshape(-1, m).copy()
+
+
+def write_block_signature_dump(fname: str, kmer_size: int, block_size: int,
+                               per_seq_blocks) -> None:
+    """per_seq_blocks: list of (numseq, [block signature u32[m], ...])."""
+    m = len(per_seq_blocks[0][1][0]) if per_seq_blocks else 0
+    with open(fname, "wb") as f:
+        f.write(struct.pack("<IIIII", MAGIC_BLOCKSIG_DUMP, 4, m, kmer_size,
+                            block_size))
+        for numseq, blocks in per_seq_blocks:
+            # per read: (numseq, n_blocks), then per block (numseq, j, sig)
+            rec = np.empty((len(blocks), 2 + m), dtype="<u4")
+            rec[:, 0] = numseq
+            rec[:, 1] = np.arange(len(blocks))
+            if len(blocks):
+                rec[:, 2:] = np.asarray(blocks, dtype="<u4")
+            f.write(struct.pack("<II", numseq, len(blocks)))
+            f.write(rec.tobytes())
+
+
+def read_block_signature_dump(fname: str):
+    """-> (kmer_size, sketch_size, block_size, list of (numseq,
+    [signature u32[m], ...]))."""
+    with open(fname, "rb") as f:
+        magic, sig_size, m, kmer_size, block_size = struct.unpack(
+            "<IIIII", f.read(20))
+        if magic != MAGIC_BLOCKSIG_DUMP:
+            raise ValueError("bad magic for block signature dump")
+        if sig_size != 4:
+            raise ValueError("only u32 block signatures supported")
+        words = np.frombuffer(f.read(), dtype="<u4")
+    out = []
+    p = 0
+    while p + 2 <= words.size:
+        numseq, nb = int(words[p]), int(words[p + 1])
+        end = p + 2 + nb * (2 + m)
+        if end > words.size:
+            raise ValueError("truncated block signature dump")
+        rec = words[p + 2 : end].reshape(nb, 2 + m)
+        out.append((numseq, [r.copy() for r in rec[:, 2:]]))
+        p = end
+    return kmer_size, m, block_size, out
 
 
 def _kmer_record_dtype(k: int):

@@ -44,6 +44,20 @@ def lt_u64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return flip64(a) < flip64(b)
 
 
+def rotl64(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Rotate u64 bit patterns left by ``r`` (an int64 tensor that
+    broadcasts against ``x``), modulo 64."""
+    r = r % 64
+    # the arithmetic shift's sign fill is masked off; r == 0 masks it all
+    right = (x >> (64 - r).clamp(max=63)) & ((1 << r) - 1)
+    return (x << r) | right
+
+
+def rotr64(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Rotate u64 bit patterns right by ``r`` modulo 64."""
+    return rotl64(x, -r % 64)
+
+
 def u32_to_i32(x: torch.Tensor) -> torch.Tensor:
     """u32 values held in int64 -> int32 bit patterns (4 bytes each)."""
     return x.to(torch.int32)

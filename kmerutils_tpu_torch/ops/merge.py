@@ -1,7 +1,7 @@
 """Merge and run aggregation of sorted k-mer entries: CUDA kernels and their
 plain versions.
 
-Port of the Pallas kernels K3-K6 of kmerutils_tpu/ops/merge_pallas.py,
+Port of the Pallas kernels K3-K7 of kmerutils_tpu/ops/merge_pallas.py,
 with the contract kept and the TPU's layout left behind (no sign-flipped
 compare words, no +1 key bias, no reversed B side, no aligned windows):
 
@@ -15,7 +15,9 @@ compare words, no +1 key bias, no reversed B side, no aligned windows):
   coordinate = the minimum, filtered by ``lo <= count <= hi``, compacted;
 * K6 :func:`aggregate_compact` (``aggregate_compact_u32``): K4 on a raw
   array whose dead entries (key all ones) trail, the tail filled with all
-  ones.
+  ones;
+* K7 :func:`compact_live` (``compact_live_u32``): stable compaction of 1-5
+  int32 arrays whose dead entries (first array all ones) lie anywhere.
 
 Entries are parallel 1-D tensors: ``key`` int32 (u32 bit patterns, k <= 16)
 or int64 (u64 bit patterns), ``cnt`` int32 (u32 bit patterns), ``crd`` int64
@@ -31,6 +33,8 @@ tensors: the kernels never work in place.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
@@ -41,13 +45,14 @@ launches_merge = 0       # K5
 launches_fold = 0        # K3
 launches_aggregate = 0   # K4
 launches_compact = 0     # K6
+launches_live = 0        # K7
 
 
 def reset_launches() -> None:
     global launches_merge, launches_fold, launches_aggregate, \
-        launches_compact
+        launches_compact, launches_live
     launches_merge = launches_fold = launches_aggregate = \
-        launches_compact = 0
+        launches_compact = launches_live = 0
 
 
 def _ukey(key: torch.Tensor) -> torch.Tensor:
@@ -206,8 +211,66 @@ def aggregate_compact(key, cnt, crd, lo: int = 1, hi: int | None = None):
 
 
 # ---------------------------------------------------------------------------
+# K7: stable compaction
+# ---------------------------------------------------------------------------
+
+def _check_arrays(arrs, what: str) -> torch.device:
+    if not 1 <= len(arrs) <= 5:
+        raise ValueError(f"{what}: takes 1-5 arrays, got {len(arrs)}")
+    a0 = arrs[0]
+    dev = a0.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    for i, t in enumerate(arrs):
+        if t.dtype != torch.int32 or t.dim() != 1 or t.shape != a0.shape \
+                or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{what}: arrs[{i}] must be contiguous int32"
+                             f"{list(a0.shape)} on {dev}, got {t.dtype}"
+                             f"{list(t.shape)} on {t.device}")
+    return dev
+
+
+def compact_live(arrs):
+    """K7.  Stable compaction of 1-5 int32 arrays (u32 bit patterns) of one
+    length m; an entry is dead when ``arrs[0]`` is all ones (-1).  Returns
+    (new arrays of length m with the live entries first, in order, and all
+    ones after them; n_live as a host int)."""
+    global launches_live
+    dev = _check_arrays(arrs, "compact_live")
+    if dev.type == "cpu":
+        return compact_live_ref(arrs)
+    lib = _build.load()
+    n = arrs[0].numel()
+    outs = tuple(torch.empty_like(a) for a in arrs)
+    if n == 0:
+        return outs, 0
+    scratch = torch.empty(lib.compact_scratch_words(n), dtype=torch.int64,
+                          device=dev)
+    ptrs = ctypes.c_void_p * len(arrs)
+    _build.launch(lib.launch_compact, len(arrs),
+                  ptrs(*[a.data_ptr() for a in arrs]),
+                  ptrs(*[o.data_ptr() for o in outs]), n, scratch.data_ptr(),
+                  device=dev)
+    launches_live += 1
+    return outs, int(scratch[-1].item())
+
+
+# ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
+
+def compact_live_ref(arrs):
+    """Plain version of :func:`compact_live` (same I/O)."""
+    _check_arrays(arrs, "compact_live_ref")
+    live = arrs[0] != -1
+    n_live = int(live.sum())
+    outs = []
+    for a in arrs:
+        o = torch.full_like(a, -1)
+        o[:n_live] = a[live]
+        outs.append(o)
+    return tuple(outs), n_live
+
 
 def _merge_order(a_key, b_key):
     """Indices into cat([a, b]) of the stable merge, A first on ties."""

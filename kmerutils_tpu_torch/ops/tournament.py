@@ -114,8 +114,9 @@ def weighted_tournament_u64(lo: torch.Tensor, hi: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _chunks(n: int, P: int, m: int):
-    """(row slice, slot slice) steps of at most ~_PLAIN_CHUNK elements."""
-    ns = max(1, min(m, 64))
+    """(row slice, slot slice) steps of at most ~_PLAIN_CHUNK elements (one
+    row and one slot at least)."""
+    ns = max(1, min(m, 64, _PLAIN_CHUNK // max(1, P)))
     nr = max(1, _PLAIN_CHUNK // max(1, P * ns))
     for r0 in range(0, n, nr):
         for s0 in range(0, m, ns):
