@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (kmerutils_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline ROOT]
 
 Run from the repository root on a machine with an NVIDIA Hopper card (the
 kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
@@ -10,23 +10,35 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
 2. build: every kernel of kmerutils_tpu_torch/csrc/ (one nvcc per source,
    started together, then one link);
 3. K1 (weighted_tournament) vs its plain PyTorch version on the card, both
-   payload modes: exact equality;
-4. K2 (weighted_tournament_u64) vs its plain version: exact equality;
+   payload modes: exact equality at every shape of KERNEL_SHAPES (short
+   and long rows, one row of ~6.1 M positions, the block rows of an 8
+   Mi-base batch, a tail of three 16,384-position rows; m = 1, 13, 200;
+   all-invalid rows and an all-invalid range inside a split row; two
+   items built through the inverse of mix32 that draw u = 1 in one slot,
+   and runs of repeated items);
+4. K2 (weighted_tournament_u64) vs its plain version: the same shapes;
 5. the slice: ``datasketcher`` on a seeded ONT-like FASTQ (10,000 reads,
    ~60 Mbases, k=8, m=200) and on a 1,000-read file with k=21, through the
    CLI entry point on ``cuda``; the dumps are read back and 64 sampled
    reads of each are recomputed through the plain path on the card; the
    kernel launch counters must show the kernels ran; the k=8 run is then
    repeated three times for its wall-time spread;
-6. timing with CUDA events at the bench shape (1024 reads x 6000 bases,
-   k=8, m=200): K1 alone, its plain version, the whole
-   ``Sketcher.sketch_batch``; K2 likewise at k=21;
+6. K1/K2 timed with CUDA events against their plain versions at the row
+   shapes of the paths (m=200): the bench shape (1024 reads x 6000 bases)
+   with K1 at k=8 and K2 at k=21, beside the whole
+   ``Sketcher.sketch_batch``; the block rows of an 8 Mi-base batch (16,384
+   x 512, k=8); a tail batch of three 16,384-base reads (k=8); each with
+   the host time to enqueue one call and its bound
+   (kmerutils_tpu_torch/roofline.py: the draws the inputs need x the
+   fewest SASS instructions per draw of the tournament kernels, counted in
+   phase 2, over the card's issue rate);
 7. K5 (merge_sorted), K3 (merge_fold), K4 (aggregate_fold) and K6
    (aggregate_compact) vs their plain versions on the card, exact, at the
    counting path's shapes (two 8 Mi-entry runs; an 8 Mi-entry batch into
    ~40 M live entries at capacity 2^26; ~50 M entries, half duplicates,
    counts near 2^32, coordinates, with and without a count filter), each
-   timed against its plain version;
+   timed against its plain version, its bytes bound and, for K3/K5, a
+   stable ``torch.sort`` of the concatenated keys (``library_ms``);
 8. the counting slice: ``parsefastq kmer --count -s 16``, ``--unique -s 21``
    and a spill run (``--capacity 4194304``, small batches, first 2,000
    reads) through the CLI entry point on ``cuda`` over a seeded
@@ -50,18 +62,35 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    recall@10 against the exact search), block ``ann`` (exact and HNSW)
    over the file's first 1,000 records, and ``Sketcher.sketch_collection``
    at the bench shape (k=21, one row of ~6.1 M distinct keys) equal to the
-   plain path, timed with K2 alone against its plain version.
+   plain path, timed with K2 alone against its plain version; then
+   ``-b 512`` again under torch.profiler for its tournament kernels'
+   device time.
+
+With ``--baseline ROOT`` (the tree of another commit, e.g. unpacked from
+``git archive`` into a git-ignored directory) the script runs phases 1-2,
+builds that tree's kernels into ROOT/build/ and compares its K1/K2 with
+this tree's through both packages' public wrappers, in turns (baseline,
+this, this, baseline): at phase 6's shapes and sketch_collection's row,
+CUDA-event ms, host ms to enqueue one call and device ms (torch.profiler),
+every result equal to the plain version; then ``datasketcher -b 512 -k 8``
+of each package over phase 5's ONT-like file (wall ms, device ms, the
+tournament kernels' device ms).  It prints one JSON line per result and
+the card line, and no ``ok`` line.
 
 The temporary files of phases 5-10 live in one directory, removed at the
 end.  The last three lines are the card's name and power limit, the
-kernels' JSON record and
+kernels' JSON record (each kernel's launches on its path, exactness, ms,
+plain_ms, bound_ms with bound_by, and library_ms or null) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero before printing either.
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
+import importlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -133,7 +162,9 @@ def environment(torch) -> str:
     return card
 
 
-def build() -> None:
+def build() -> dict:
+    """Builds the kernels; returns the SASS instructions per draw of the
+    tournament kernels ("u32": K1, "u64": K2)."""
     phase("2 build")
     from kmerutils_tpu_torch import _build
     t0 = time.perf_counter()
@@ -144,15 +175,30 @@ def build() -> None:
     for line in info.get("output", "").splitlines():
         if "ptxas" in line or "spill" in line:
             print("  " + line.strip())
+    from kmerutils_tpu_torch import roofline
+    ipd = {}
+    for name, r in roofline.tournament_instructions_per_draw(
+            _build.library_path()).items():
+        # K2; K1 with item payloads (the sketch's); K1 positions mode
+        kind = ("u64" if "ILb1E" in name else
+                "u32" if "ILb0ELb1E" in name else "u32_pos")
+        ipd[kind] = r["instructions_per_draw"]
+        print(f"SASS {name[:60]}: inner loop {r['instructions']} "
+              f"instructions for {r['draws']} draws")
+    check(set(ipd) == {"u32", "u32_pos", "u64"},
+          f"tournament SASS not found: {ipd}")
+    return ipd
 
 
 # ---------------------------------------------------------------------------
 # phase 3-4: kernels vs plain versions on the card
 # ---------------------------------------------------------------------------
 
-def tournament_inputs(rng, n: int, P: int, wide: bool):
+def tournament_inputs(rng, n: int, P: int, wide: bool, empty_rows=(),
+                      empty_span=None):
     """Items with values >= 2^31 (>= 2^63 when wide), many duplicates,
-    invalid positions (winv 0 or negative) and one all-invalid row."""
+    invalid positions (winv 0 or negative), the given all-invalid rows and
+    an all-invalid position range [a, b) of row 0."""
     hi_bit = 63 if wide else 31
     pool = rng.integers(0, 1 << hi_bit, size=max(4, P // 3), dtype=np.uint64)
     pool[: len(pool) // 2] |= np.uint64(1 << hi_bit)
@@ -161,8 +207,65 @@ def tournament_inputs(rng, n: int, P: int, wide: bool):
     winv = (1.0 / w).astype(np.float32)
     bad = rng.random((n, P)) < 0.1
     winv[bad] = rng.choice(np.array([0.0, -1.0], np.float32), size=bad.sum())
-    winv[n // 2, :] = 0.0
+    for r in empty_rows:
+        winv[r, :] = 0.0
+    if empty_span is not None:
+        winv[0, empty_span[0] : empty_span[1]] = 0.0
     return items, winv
+
+
+def mix32(x: int) -> int:
+    h = (x * 0x9E3779B1) & 0xFFFFFFFF
+    h ^= h >> 15
+    return (h * 0x85EBCA77) & 0xFFFFFFFF
+
+
+def unit_draw_item(slot_const: int, h: int) -> int:
+    """The u32 x with mix32(x ^ slot_const) = h: mix32 inverted step by
+    step.  h >= 0xFFFFFF00 gives the draw u = 1 (e = 0, the largest draw,
+    whatever the weight)."""
+    def inv(a):
+        return pow(a, -1, 1 << 32)
+    y = (h * inv(0x85EBCA77)) & 0xFFFFFFFF
+    z = y ^ (y >> 15) ^ (y >> 30)                 # undo h ^= h >> 15
+    return ((z * inv(0x9E3779B1)) & 0xFFFFFFFF) ^ slot_const
+
+
+def plant_ties(items, winv, m: int, seed: int, wide: bool):
+    """Row 0 gets two positions that draw u = 1 in slot 3 % m, with other
+    items and weights (a tie at e = 0, decided by the payload), and a run
+    of repeats of the second with equal and other weights.  Returns the
+    slot constant."""
+    from kmerutils_tpu_torch.ops import tournament as T
+    sc = int(T.slot_consts(m, seed)[3 % m])
+    if items.shape[1] < 16:
+        return sc
+    x5, x9 = (np.uint64(unit_draw_item(sc, h))
+              for h in (0xFFFFFFFF, 0xFFFFFF00))
+    check(mix32(int(x5) ^ sc) == 0xFFFFFFFF, "mix32 inverse")
+    if wide:   # the fold lo ^ hi is what draws
+        top = np.uint64(0x9ABCDEF0)
+        x5, x9 = x5 ^ top | top << np.uint64(32), x9
+    items[0, 5], items[0, 9] = x5, x9
+    winv[0, 5], winv[0, 9] = 0.5, 1.0
+    items[0, 10:15] = items[0, 9]
+    winv[0, 10:15] = [1.0, 0.25, 0.25, 1.0, 0.0]
+    return sc
+
+
+def draws_one(x: int, sc: int) -> bool:
+    return mix32((x ^ sc) & 0xFFFFFFFF) >> 8 == 0xFFFFFF
+
+
+# (n, P, m, all-invalid rows, all-invalid range of row 0): the earlier
+# shapes, one long row (sketch_collection), short rows, the block rows of
+# an 8 Mi-base batch, a tail batch of 16 k-base reads whose rows are split
+KERNEL_SHAPES = ((64, 5993, 200, (32,), None), (64, 5993, 13, (32,), None),
+                 (64, 37, 200, (32,), None), (64, 37, 13, (32,), None),
+                 (1, 6_123_500, 200, (), (1_000_000, 1_020_000)),
+                 (1, 37, 13, (), None), (16384, 512, 200, (7, 9000), None),
+                 (3, 16384, 200, (1,), (4000, 9000)),
+                 (3, 16384, 1, (1,), None))
 
 
 def as_i32(x_u32: np.ndarray, dev):
@@ -186,23 +289,29 @@ def k1_vs_plain(torch, rng, dev) -> int:
     phase("3 K1 vs plain (exact)")
     from kmerutils_tpu_torch.ops import tournament as T
     worst = 0
-    for P in (5993, 37):
-        for m in (200, 13):
-            items, winv = tournament_inputs(rng, 64, P, wide=False)
-            it, wv = as_i32(items, dev), torch.from_numpy(winv).to(dev)
-            for pos in (False, True):
-                got = T.weighted_tournament(it, wv, m, seed=7,
-                                            return_positions=pos)
-                want = T.weighted_tournament_ref(it, wv, m, seed=7,
-                                                 return_positions=pos)
-                sync(torch, dev)
-                err = max_abs_err(got, want)
-                worst = max(worst, err)
-                print(f"K1 P={P} m={m} positions={pos}: "
-                      f"{int((got != want).sum())} mismatches", flush=True)
-                check(torch.equal(got, want), f"K1 != plain (P={P}, m={m}, "
-                      f"positions={pos})")
-                check(bool((got[32] == 0).all()), "K1 all-invalid row != 0")
+    for n, P, m, empty, span in KERNEL_SHAPES:
+        items, winv = tournament_inputs(rng, n, P, False, empty, span)
+        sc = plant_ties(items, winv, m, 7, wide=False)
+        it, wv = as_i32(items, dev), torch.from_numpy(winv).to(dev)
+        for pos in (False, True):
+            got = T.weighted_tournament(it, wv, m, seed=7,
+                                        return_positions=pos)
+            want = T.weighted_tournament_ref(it, wv, m, seed=7,
+                                             return_positions=pos)
+            sync(torch, dev)
+            worst = max(worst, max_abs_err(got, want))
+            print(f"K1 {n} x {P} m={m} positions={pos} ("
+                  f"{T.launch_plan(it.device, n, P, m, False, pos)}): "
+                  f"{int((got != want).sum())} mismatches", flush=True)
+            check(torch.equal(got, want), f"K1 != plain ({n} x {P}, m={m}, "
+                  f"positions={pos})")
+            check(all(bool((got[r] == 0).all()) for r in empty),
+                  "K1 all-invalid row != 0")
+            if P >= 16:
+                win = int(got[0, 3 % m]) & 0xFFFFFFFF
+                x = int(items[0, win]) if pos else win
+                check(draws_one(x, sc), "K1: no u = 1 draw won its slot")
+        del it, wv, got, want
     return worst
 
 
@@ -210,25 +319,29 @@ def k2_vs_plain(torch, rng, dev) -> int:
     phase("4 K2 vs plain (exact)")
     from kmerutils_tpu_torch.ops import tournament as T
     worst = 0
-    for P in (5993, 37):
-        for m in (200, 13):
-            items, winv = tournament_inputs(rng, 64, P, wide=True)
-            lo = as_i32(items & np.uint64(0xFFFFFFFF), dev)
-            hi = as_i32(items >> np.uint64(32), dev)
-            wv = torch.from_numpy(winv).to(dev)
-            got = T.weighted_tournament_u64(lo, hi, wv, m, seed=7)
-            want = T.weighted_tournament_u64_ref(lo, hi, wv, m, seed=7)
-            sync(torch, dev)
-            err = max(max_abs_err(got[0], want[0]),
-                      max_abs_err(got[1], want[1]))
-            worst = max(worst, err)
-            print(f"K2 P={P} m={m}: {int((got[0] != want[0]).sum())} lo / "
-                  f"{int((got[1] != want[1]).sum())} hi mismatches",
-                  flush=True)
-            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-                  f"K2 != plain (P={P}, m={m})")
-            check(bool((got[0][32] == 0).all() and (got[1][32] == 0).all()),
-                  "K2 all-invalid row != 0")
+    for n, P, m, empty, span in KERNEL_SHAPES:
+        items, winv = tournament_inputs(rng, n, P, True, empty, span)
+        sc = plant_ties(items, winv, m, 7, wide=True)
+        lo = as_i32(items & np.uint64(0xFFFFFFFF), dev)
+        hi = as_i32(items >> np.uint64(32), dev)
+        wv = torch.from_numpy(winv).to(dev)
+        got = T.weighted_tournament_u64(lo, hi, wv, m, seed=7)
+        want = T.weighted_tournament_u64_ref(lo, hi, wv, m, seed=7)
+        sync(torch, dev)
+        worst = max(worst, max_abs_err(got[0], want[0]),
+                    max_abs_err(got[1], want[1]))
+        pl = T.launch_plan(lo.device, n, P, m, True)
+        print(f"K2 {n} x {P} m={m} ({pl}): "
+              f"{int((got[0] != want[0]).sum())} lo / "
+              f"{int((got[1] != want[1]).sum())} hi mismatches", flush=True)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"K2 != plain ({n} x {P}, m={m})")
+        check(all(bool((got[0][r] == 0).all() and (got[1][r] == 0).all())
+                  for r in empty), "K2 all-invalid row != 0")
+        if P >= 16:
+            x = int(got[0][0, 3 % m]) ^ int(got[1][0, 3 % m])
+            check(draws_one(x, sc), "K2: no u = 1 draw won its slot")
+        del lo, hi, wv, got, want
     return worst
 
 
@@ -357,7 +470,7 @@ def slice_runs(torch, rng, tmp: str, card: str, dev,
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing at the bench shape
+# phase 6: K1/K2 timing at the row shapes of the paths
 # ---------------------------------------------------------------------------
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -374,46 +487,150 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
-def timings(torch, rng, card: str):
-    phase("6 timing at the bench shape (1024 x 6000, m=200)")
+def enqueue_ms(torch, fn, iters: int = 50) -> float:
+    """Host ms to enqueue one call: a loop of calls with no synchronisation
+    inside it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / iters
+
+
+class Bounds:
+    """roofline bounds on this card: the SM count and maximum SM clock, and
+    for K1/K2 one instructions-per-draw figure for every build and mode,
+    the fewest that any tournament kernel's inner loop spends on a draw
+    (each kernel's own count is printed by phase 2)."""
+
+    def __init__(self, torch, ipd: dict):
+        from kmerutils_tpu_torch import roofline
+        self.rl = roofline
+        self.per_draw = min(ipd.values())
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+        self.clock = roofline.sm_clock_hz()
+        print(f"K1/K2 bound: {self.per_draw} instructions per draw, "
+              f"{self.sms} SMs at {self.clock / 1e9:.3f} GHz", flush=True)
+
+    def bytes(self, nbytes: float):
+        return self.rl.bound(nbytes)
+
+    def tournament(self, args, m: int):
+        """(bound ms, bound_by) of K1 (args items, winv) or K2 (lo, hi,
+        winv)."""
+        wide = len(args) == 3
+        x = args[0] ^ args[1] if wide else args[0]
+        draws, nbytes = self.rl.tournament_work(x, args[-1], m, wide)
+        return self.rl.bound(nbytes, draws * self.per_draw, self.sms,
+                             self.clock)
+
+
+def random_batch(rng, n: int, L: int):
     from kmerutils_tpu_torch.base.sequence import pack_codes
-    from kmerutils_tpu_torch.ops import tournament as T
-    from kmerutils_tpu_torch.sketch import probminhash
-    from kmerutils_tpu_torch.sketch.jaccard import Sketcher, hashed_kmers
-    from kmerutils_tpu_torch.sketch.params import SeqSketcherParams
-    n, L, m = 1024, 6000, 200
     codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
-    batch = pack_codes(codes, np.full(n, L, np.int32), device="cuda")
+    return pack_codes(codes, np.full(n, L, np.int32), device="cuda")
+
+
+def sorted_rows(torch, items, valid):
+    """The per-row sorted items and weights the sketch gives K1/K2."""
+    from kmerutils_tpu_torch.sketch import probminhash
+    s, winv, is_real = probminhash.sort_with_multiplicities(items, valid)
+    return s.contiguous(), torch.where(is_real, winv, 0.0).contiguous()
+
+
+def halves(torch, s):
+    return (s.to(torch.int32).contiguous(),
+            (s >> 32).to(torch.int32).contiguous())
+
+
+def block_rows(torch, batch, k: int, bs: int = 512):
+    """The sorted block rows and weights the -b path gives K1."""
+    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
+    items, valid = hashed_kmers(batch, k)
+    pad = -items.shape[1] % bs
+    items = torch.nn.functional.pad(items, (0, pad)).reshape(-1, bs)
+    valid = torch.nn.functional.pad(valid, (0, pad)).reshape(-1, bs)
+    return sorted_rows(torch, items, valid)
+
+
+def collection_row(torch, batch, k: int = 21):
+    """sketch_collection's one row for K2: the batch's distinct k-mers as
+    lo / hi halves [1, n], weighted by 1 / their counts."""
+    from kmerutils_tpu_torch.count import exact
+    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
+    items, valid = hashed_kmers(batch, k)
+    kc = exact.count_from_values(
+        torch.where(valid.reshape(-1), items.reshape(-1), -1))
+    w = torch.where(kc.keys != -1, kc.counts, 0)[None, :]
+    winv = torch.where(w > 0, 1.0 / w.clamp(min=1).to(torch.float32),
+                       0.0).contiguous()
+    return (*halves(torch, kc.keys[None, :]), winv), int(kc.n_distinct)
+
+
+def tournament_shapes(torch, rng, bench, collection: bool = False):
+    """(name, K1 inputs (items, winv) or K2 inputs (lo, hi, winv)) at the
+    row shapes of the paths: the bench batch ``bench`` at k=8 (K1) and
+    k=21 (K2); the block rows of an 8 Mi-base batch (512 random reads x
+    16,384 -> 16,384 x 512, k=8); a tail batch of three 16,384-base reads
+    (k=8); with ``collection``, sketch_collection's row of the bench
+    batch."""
+    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
+    yield "bench_k8", sorted_rows(torch, *hashed_kmers(bench, 8))
+    s, w = sorted_rows(torch, *hashed_kmers(bench, 21))
+    yield "bench_k21", (*halves(torch, s), w)
+    yield "block_k8", block_rows(torch, random_batch(rng, 512, 16384), 8)
+    yield "tail_k8", sorted_rows(torch, *hashed_kmers(
+        random_batch(rng, 3, 16384), 8))
+    if collection:
+        yield "collection_k21", collection_row(torch, bench)[0]
+
+
+def tournament_fn(T, args, m: int, plain: bool = False):
+    """A call of K1 or K2 of tournament module T on args (or of its plain
+    version), returning one tensor."""
+    if len(args) == 2:
+        fn = T.weighted_tournament_ref if plain else T.weighted_tournament
+        return lambda: fn(*args, m)
+    fn = T.weighted_tournament_u64_ref if plain else T.weighted_tournament_u64
+    return lambda: fn(*args, m)
+
+
+def same(torch, a, b) -> bool:
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def timings(torch, rng, card: str, bounds: Bounds, m: int = 200):
+    phase("6 K1/K2 timing at the paths' row shapes (m=200) and sketch_batch")
+    from kmerutils_tpu_torch.ops import tournament as T
+    from kmerutils_tpu_torch.sketch.jaccard import Sketcher
+    from kmerutils_tpu_torch.sketch.params import SeqSketcherParams
+    n, L = 1024, 6000
+    batch = random_batch(rng, n, L)
     out = {}
-    for k in (8, 21):
-        items, valid = hashed_kmers(batch, k)
-        s, winv, is_real = probminhash.sort_with_multiplicities(items, valid)
-        winv = torch.where(is_real, winv, 0.0).contiguous()
-        if k <= 16:
-            it = s.contiguous()
-            kern = lambda: T.weighted_tournament(it, winv, m)     # noqa: E731
-            plain = lambda: T.weighted_tournament_ref(it, winv, m)  # noqa: E731
-        else:
-            lo = s.to(torch.int32).contiguous()
-            hi = (s >> 32).to(torch.int32).contiguous()
-            kern = lambda: T.weighted_tournament_u64(lo, hi, winv, m)  # noqa: E731
-            plain = lambda: T.weighted_tournament_u64_ref(lo, hi, winv, m)  # noqa: E731
-        got, want = kern(), plain()
-        got = got if k <= 16 else torch.stack(got)
-        want = want if k <= 16 else torch.stack(want)
-        check(torch.equal(got, want), f"k={k} bench batch: kernel != plain")
-        sk = Sketcher(SeqSketcherParams(kmer_size=k, sketch_size=m))
-        # turns: plain, kernel, kernel, plain
-        p1 = cuda_ms(torch, plain, 3, warmup=1)
-        k1 = cuda_ms(torch, kern, 20)
-        k2 = cuda_ms(torch, kern, 20)
-        p2 = cuda_ms(torch, plain, 3, warmup=0)
-        step = cuda_ms(torch, lambda: sk.sketch_batch(batch), 10)
-        r = {"k": k, "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-             "sketch_batch_ms": step,
-             "sketch_mbases_per_s": n * L / step / 1e3, "card": card}
-        print(json.dumps({"timing": f"bench_shape_k{k}", **r}), flush=True)
-        out[k] = {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
+    for name, args in tournament_shapes(torch, rng, batch):
+        kern = tournament_fn(T, args, m)
+        plain = tournament_fn(T, args, m, plain=True)
+        check(same(torch, kern(), plain()), f"{name}: kernel != plain")
+        ms, pms, runs = turns(torch, kern, plain, iters=20)
+        bound = bounds.tournament(args, m)
+        r = {"timing": name, "rows": args[-1].shape[0],
+             "P": args[-1].shape[1], "ms_plain_kern_kern_plain": runs,
+             "enqueue_ms": enqueue_ms(torch, kern), "bound_ms": bound[0],
+             "bound_by": bound[1], "bound_share": bound[0] / ms}
+        if name.startswith("bench"):
+            sk = Sketcher(SeqSketcherParams(kmer_size=int(name[7:]),
+                                            sketch_size=m))
+            step = cuda_ms(torch, lambda: sk.sketch_batch(batch), 10)
+            r.update(sketch_batch_ms=step,
+                     sketch_mbases_per_s=n * L / step / 1e3)
+        print(json.dumps({**r, "card": card}), flush=True)
+        out[name] = {"ms": ms, "plain_ms": pms, "bound_ms": bound[0],
+                     "bound_by": bound[1]}
     return out
 
 
@@ -471,24 +688,39 @@ def turns(torch, kern, plain, iters: int = 10, plain_iters: int = 3):
     return min(k1, k2), min(p1, p2), [p1, k1, k2, p2]
 
 
-def merge_kernels_vs_plain(torch, rng, card: str, n_run: int = 8 << 20,
+def merge_kernels_vs_plain(torch, rng, card: str, bounds: Bounds,
+                           n_run: int = 8 << 20,
                            cap: int = 1 << 26, used: int = 40_000_000,
                            n_agg: int = 50_000_000, dead: int = 1 << 20):
     phase("7 K5, K3, K4, K6 vs plain (exact) and timing")
     from kmerutils_tpu_torch.ops import merge as M
     res = {}
 
-    def record(name, bad, err, ms, plain_ms, runs, shape):
+    def record(name, bad, err, ms, plain_ms, runs, shape, nbytes,
+               library_ms=None):
         r = res.setdefault(name, {"mismatches": 0, "max_abs_err": 0,
-                                  "ms": [], "plain_ms": []})
+                                  "ms": [], "plain_ms": [], "bound_ms": [],
+                                  "library_ms": []})
         r["mismatches"] += bad
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"].append(ms)
         r["plain_ms"].append(plain_ms)
+        r["bound_ms"].append(bounds.bytes(nbytes)[0])
+        r["library_ms"].append(library_ms)
         print(json.dumps({"timing": name, "shape": shape, "mismatches": bad,
-                          "ms_plain_kern_kern_plain": runs, "card": card}),
+                          "ms_plain_kern_kern_plain": runs, "bytes": nbytes,
+                          "bound_ms": r["bound_ms"][-1],
+                          "library_ms": library_ms, "card": card}),
               flush=True)
         check(bad == 0 and err == 0, f"{name} != plain at {shape}")
+
+    def sort_ms(*keys):
+        """A stable torch.sort of the concatenated keys as int64 carriers
+        of the unsigned values: the one library call that orders a merge."""
+        cat = torch.cat([M._ukey(k) for k in keys])
+        ms = cuda_ms(torch, lambda: torch.sort(cat, stable=True), 10)
+        del cat
+        return ms
 
     for wide, with_crd in ((False, False), (True, True)):
         a_key = to_dev(torch, sorted_keys(rng, n_run, wide, 0.3))
@@ -502,9 +734,11 @@ def merge_kernels_vs_plain(torch, rng, card: str, n_run: int = 8 << 20,
         ms, pms, runs = turns(
             torch, lambda: M.merge_sorted(a_key, a_crd, b_key, b_crd),
             lambda: M.merge_sorted_ref(a_key, a_crd, b_key, b_crd))
+        ent = a_key.element_size() + (8 if with_crd else 0)
         record("merge_sorted", bad, err, ms, pms, runs,
                f"2 x {n_run} {'u64' if wide else 'u32'} keys"
-               f"{' + coords' if with_crd else ''}")
+               f"{' + coords' if with_crd else ''}", 4 * n_run * ent,
+               sort_ms(a_key, b_key))
         del a_key, b_key, a_crd, b_crd, got, want
 
     for wide, with_crd in ((False, False), (True, True)):
@@ -524,9 +758,12 @@ def merge_kernels_vs_plain(torch, rng, card: str, n_run: int = 8 << 20,
         bad, err = compare(torch, got[:3], want[:3], got[3])
         ms, pms, runs = turns(torch, lambda: M.merge_fold(*args),
                               lambda: M.merge_fold_ref(*args))
+        ent = t_key.element_size() + (8 if with_crd else 0)
         record("merge_fold", bad, err, ms, pms, runs,
                f"{n_run} into {used} of {cap}, {'u64' if wide else 'u32'} "
-               f"keys{' + coords' if with_crd else ''}")
+               f"keys{' + coords' if with_crd else ''}",
+               used * (ent + 4) + n_run * ent + (used + n_run) * (ent + 4),
+               sort_ms(t_key[:used], b_key))
         del t_key, t_cnt, t_crd, b_key, b_crd, args, got, want
 
     for wide, lo, hi in ((False, 2, (1 << 31)), (True, 1, None)):
@@ -560,10 +797,13 @@ def merge_kernels_vs_plain(torch, rng, card: str, n_run: int = 8 << 20,
             bad, err = compare(torch, got[:3], want[:3],
                                k.numel() if sentinel else got[3])
             ms, pms, runs = turns(torch, kern, plain)
+            ent = k.element_size() + 4 + 8
+            n_in = k.numel() if sentinel else n_agg
             record(name, bad, err, ms, pms, runs,
                    f"{n_agg} entries{f' + {dead} dead' if sentinel else ''},"
                    f" {'u64' if wide else 'u32'} keys + coords, lo={lo} "
-                   f"hi={hi}, n_live={got[3]}")
+                   f"hi={hi}, n_live={got[3]}",
+                   ent * (n_in + (n_in if sentinel else got[3])))
             del k, c, r, got, want
     torch.cuda.empty_cache()
     return res
@@ -819,8 +1059,8 @@ def exact_path_checks(torch, batch, reads, k: int, what: str) -> int:
     return int(keys.size)
 
 
-def k7_and_exact(torch, rng, card: str, dev="cuda", n_syn: int = 64 << 20,
-                 bench=(1024, 6000)):
+def k7_and_exact(torch, rng, card: str, bounds: Bounds, dev="cuda",
+                 n_syn: int = 64 << 20, bench=(1024, 6000)):
     phase("9 K7 vs plain (exact) and the exact-counting path")
     from kmerutils_tpu_torch.base.sequence import pack_ascii_reads, pack_codes
     from kmerutils_tpu_torch.count import exact
@@ -835,10 +1075,15 @@ def k7_and_exact(torch, rng, card: str, dev="cuda", n_syn: int = 64 << 20,
                               lambda: M.compact_live_ref(arrs))
         res["mismatches"] += bad
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        res["shapes"].append({"shape": what, "ms": ms, "plain_ms": pms})
+        # bytes: every array read once and written once (live entries,
+        # then the all-ones tail); the library call is the plain version's
+        # boolean-mask indexing
+        bound = bounds.bytes(8 * arrs[0].numel() * len(arrs))[0]
+        res["shapes"].append({"shape": what, "ms": ms, "plain_ms": pms,
+                              "bound_ms": bound})
         print(json.dumps({"timing": "compact_live", "shape": what,
                           "mismatches": bad, "ms_plain_kern_kern_plain": runs,
-                          "card": card}), flush=True)
+                          "bound_ms": bound, "card": card}), flush=True)
         return ms, pms
 
     for narr in (1, 5):
@@ -878,7 +1123,8 @@ def k7_and_exact(torch, rng, card: str, dev="cuda", n_syn: int = 64 << 20,
     ms, pms = record(arrs, f"count_batch_detailed k=21 bench batch "
                            f"({arrs[0].numel()} entries, {distinct} live) "
                            f"x 5 arrays")
-    res.update(ms=ms, plain_ms=pms, launches=launches)
+    res.update(ms=ms, plain_ms=pms, launches=launches,
+               bound_ms=res["shapes"][-1]["bound_ms"])
     return res
 
 
@@ -940,10 +1186,30 @@ def check_ann_dump(path: str, n: int, k: int, read_of=None):
     return nn, sim
 
 
-def datasketcher_run(argv, what: str):
+def datasketcher_main():
     from kmerutils_tpu_torch.cli import datasketcher
+    return datasketcher.main
+
+
+def cli_profile(main, argv) -> dict:
+    """``main(argv)`` (a datasketcher entry point) run under
+    torch.profiler (profile_sketch.profile: one warm run, one timed with
+    CUDA events, one profiled): its event ms, the device ms of all its
+    kernels and of the tournament kernels."""
+    from kmerutils_tpu_torch.profile_sketch import profile
+
+    def run():
+        check(main(argv) == 0, f"datasketcher {' '.join(argv)} failed")
+    p = profile(run, 1)
+    return {"event_ms": p["event_ms_per_call"],
+            "device_ms": p["device_ms_per_call"],
+            "tournament_device_ms": p["family_ms_per_call"].get(
+                "tournament", 0.0)}
+
+
+def datasketcher_run(argv, what: str):
     t0 = time.perf_counter()
-    rc = datasketcher.main(argv)
+    rc = datasketcher_main()(argv)
     wall = time.perf_counter() - t0
     print(f"{what}: rc {rc} in {wall:.3f} s", flush=True)
     check(rc == 0, f"{what} returned non-zero")
@@ -951,15 +1217,14 @@ def datasketcher_run(argv, what: str):
 
 
 def rest_of_datasketcher(torch, rng, tmp: str, card: str, dev, fq8: str,
-                         clean8, n_block_ann: int = 1000, m: int = 200,
+                         clean8, bounds: Bounds, n_block_ann: int = 1000,
+                         m: int = 200,
                          bench=(1024, 6000)):
     phase("10 the rest of datasketcher on cuda: -b, ann, block ann, "
           "sketch_collection")
-    from kmerutils_tpu_torch.base.sequence import pack_codes
-    from kmerutils_tpu_torch.count import exact
     from kmerutils_tpu_torch.io import formats
     from kmerutils_tpu_torch.ops import tournament as T
-    from kmerutils_tpu_torch.sketch.jaccard import Sketcher, hashed_kmers
+    from kmerutils_tpu_torch.sketch.jaccard import Sketcher
     from kmerutils_tpu_torch.sketch.params import SeqSketcherParams
     out = {"card": card}
     for d in ("blk", "brute", "hnsw", "bann", "bann_hnsw"):
@@ -1068,42 +1333,121 @@ def rest_of_datasketcher(torch, rng, tmp: str, card: str, dev, fq8: str,
     check_ann_dump(bh + "-ann", who.shape[0], 10, read_of)
 
     # the whole-collection sketch at the bench shape (one row, k = 21)
-    nr, L = bench
-    codes = rng.integers(0, 4, size=(nr, L), dtype=np.uint8)
-    batch = pack_codes(codes, np.full(nr, L, np.int32), device=dev)
+    batch = random_batch(rng, *bench)
     sk = Sketcher(SeqSketcherParams(kmer_size=21, sketch_size=m))
     T.launches_u64 = 0
     got = sk.sketch_collection(batch)
     k2 = T.launches_u64
-    items, valid = hashed_kmers(batch, 21)
-    kc = exact.count_from_values(
-        torch.where(valid.reshape(-1), items.reshape(-1), -1))
-    w = torch.where(kc.keys != -1, kc.counts, 0)[None, :]
-    winv = torch.where(w > 0, 1.0 / w.clamp(min=1).to(torch.float32),
-                       0.0).contiguous()
-    lo = kc.keys.to(torch.int32)[None, :].contiguous()
-    hi = (kc.keys >> 32).to(torch.int32)[None, :].contiguous()
-    plo, phi = T.weighted_tournament_u64_ref(lo, hi, winv, m)
+    args, distinct = collection_row(torch, batch)
+    plo, phi = T.weighted_tournament_u64_ref(*args, m)
     want = (phi[0].to(torch.int64) << 32) | (plo[0].to(torch.int64)
                                              & 0xFFFFFFFF)
     sync(torch, dev)
-    distinct = int(kc.n_distinct)
     check(k2 == 1, f"K2 launched {k2} times by sketch_collection, want 1")
     check(torch.equal(got, want), "sketch_collection != plain path")
-    ms, pms, runs = turns(
-        torch, lambda: T.weighted_tournament_u64(lo, hi, winv, m),
-        lambda: T.weighted_tournament_u64_ref(lo, hi, winv, m), iters=3,
-        plain_iters=1)
+    kern = tournament_fn(T, args, m)
+    ms, pms, runs = turns(torch, kern, tournament_fn(T, args, m, plain=True),
+                          iters=3, plain_iters=1)
+    bound = bounds.tournament(args, m)
     out.update(collection_distinct=distinct,
+               collection_k2_bound_ms=bound[0],
+               collection_k2_bound_by=bound[1],
                collection_ms=cuda_ms(torch,
                                      lambda: sk.sketch_collection(batch), 3),
                collection_k2_ms=ms, collection_k2_plain_ms=pms,
-               collection_k2_runs=runs)
+               collection_k2_runs=runs,
+               collection_k2_enqueue_ms=enqueue_ms(torch, kern))
+    # -b 512 again, profiled: the tournament kernels' share of its device
+    # time (the counted run above stays unprofiled)
+    out["block_profile"] = cli_profile(
+        datasketcher_main(), base + ["-b", "512", "-d", bdump])
     print(json.dumps({"timing": "phase10", **out}), flush=True)
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# --baseline: K1/K2 of this tree against another tree's, in turns
+# ---------------------------------------------------------------------------
+
+def load_port(root: str, name: str = "baseline_port"):
+    """The port's package in the tree ``root``, imported as ``name`` beside
+    this tree's (its modules import each other relatively; its kernels
+    build into root/build/)."""
+    pkg = os.path.join(os.path.abspath(root), "kmerutils_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    check(spec is not None, f"no kmerutils_tpu_torch package in {root}")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def against_baseline(torch, rng, root: str, card: str, ipd: dict,
+                     m: int = 200) -> None:
+    phase(f"A/B: K1/K2 of this tree against the port in {root}")
+    from kmerutils_tpu_torch import roofline
+    from kmerutils_tpu_torch.ops import tournament as T
+    from kmerutils_tpu_torch.profile_sketch import profile
+    load_port(root)
+    base_build = importlib.import_module("baseline_port._build")
+    base_build.load()
+    print(f"baseline kernels built in "
+          f"{base_build.build_info.get('seconds', 0.0):.2f} s", flush=True)
+    for name, r in roofline.tournament_instructions_per_draw(
+            base_build.library_path()).items():
+        ipd["baseline " + name] = r["instructions_per_draw"]
+        print(f"baseline SASS {name[:60]}: inner loop {r['instructions']} "
+              f"instructions for {r['draws']} draws")
+    bounds = Bounds(torch, ipd)
+    impls = {"baseline": importlib.import_module(
+        "baseline_port.ops.tournament"), "this": T}
+    order = ("baseline", "this", "this", "baseline")
+    for name, args in tournament_shapes(torch, rng, random_batch(rng, 1024,
+                                                                 6000),
+                                        collection=True):
+        want = tournament_fn(T, args, m, plain=True)()
+        fns = {k: tournament_fn(mod, args, m) for k, mod in impls.items()}
+        for k, fn in fns.items():
+            check(same(torch, fn(), want), f"{name}: {k} kernel != plain")
+        iters = max(3, min(50, int(200 / max(0.05, cuda_ms(torch,
+                                                          fns["this"], 1)))))
+        res = {k: {"ms": [], "enqueue_ms": []} for k in fns}
+        for k in order:
+            res[k]["ms"].append(cuda_ms(torch, fns[k], iters))
+        for k in order:
+            res[k]["enqueue_ms"].append(enqueue_ms(torch, fns[k]))
+        for k in fns:
+            res[k]["device_ms"] = profile(fns[k], 5)["device_ms_per_call"]
+        bound = bounds.tournament(args, m)
+        print(json.dumps({"timing": name, "rows": args[-1].shape[0],
+                          "P": args[-1].shape[1], "iters": iters, **res,
+                          "bound_ms": bound[0], "bound_by": bound[1],
+                          "card": card}), flush=True)
+        del args, want, fns
+        torch.cuda.empty_cache()
+    mains = {"baseline": importlib.import_module(
+        "baseline_port.cli.datasketcher").main, "this": datasketcher_main()}
+    with tempfile.TemporaryDirectory() as tmp:
+        fq = os.path.join(tmp, "ont10k.fastq")
+        write_ont_fastq(fq, rng, 10_000, 7)
+        argv = ["-f", fq, "-s", str(m), "-k", "8", "-b", "512", "-d",
+                os.path.join(tmp, "sigs.bin"), "--device", "cuda"]
+        res = {k: [] for k in mains}
+        for k in order:
+            res[k].append(cli_profile(mains[k], argv))
+    print(json.dumps({"timing": "datasketcher_b512_k8", **res,
+                      "card": card}), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Smoke test of the PyTorch + CUDA port on one GPU.")
+    ap.add_argument("--baseline", metavar="ROOT", default=None,
+                    help="compare K1/K2 with the port in this tree instead "
+                         "of running the smoke test")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError as e:
@@ -1120,30 +1464,50 @@ def main() -> int:
               "repository root", file=sys.stderr)
         return 1
     rng = np.random.default_rng(SEED)
+    if args.baseline:
+        try:
+            card = environment(torch)
+            against_baseline(torch, rng, args.baseline, card, build())
+        except SmokeFailure as e:
+            print(f"FAIL: {e}", file=sys.stderr)
+            return 1
+        print(card)
+        return 0
     try:
         card = environment(torch)
-        build()
+        bounds = Bounds(torch, build())
         err1 = k1_vs_plain(torch, rng, "cuda")
         err2 = k2_vs_plain(torch, rng, "cuda")
         with tempfile.TemporaryDirectory() as tmp:
             launches, fq8, clean8 = slice_runs(torch, rng, tmp, card, "cuda")
-            t = timings(torch, rng, card)
-            m = merge_kernels_vs_plain(torch, rng, card)
+            t = timings(torch, rng, card, bounds)
+            m = merge_kernels_vs_plain(torch, rng, card, bounds)
             launches.update(counting_runs(torch, rng, tmp, card, "cuda"))
-            k7 = k7_and_exact(torch, rng, card)
+            k7 = k7_and_exact(torch, rng, card, bounds)
             torch.cuda.empty_cache()
-            rest_of_datasketcher(torch, rng, tmp, card, "cuda", fq8, clean8)
+            rest_of_datasketcher(torch, rng, tmp, card, "cuda", fq8, clean8,
+                                 bounds)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    # bound_ms / library_ms of the shape "ms" was taken at; library_ms is
+    # null where no one PyTorch call computes the kernel's function
+    k1, k2 = t["bench_k8"], t["bench_k21"]
     kernels = [
         {"name": "weighted_tournament", "route": "cuda", "source": SOURCE,
          "replaces": K1_TPU, "launches": launches["u32"], "mismatches": 0,
-         "max_abs_err": err1, "ms": t[8]["ms"], "plain_ms": t[8]["plain_ms"]},
+         "max_abs_err": err1, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None,
+         "block_shape_ms": t["block_k8"]["ms"],
+         "block_shape_bound_ms": t["block_k8"]["bound_ms"],
+         "tail_shape_ms": t["tail_k8"]["ms"],
+         "tail_shape_bound_ms": t["tail_k8"]["bound_ms"]},
         {"name": "weighted_tournament_u64", "route": "cuda", "source": SOURCE,
          "replaces": K2_TPU, "launches": launches["u64"], "mismatches": 0,
-         "max_abs_err": err2, "ms": t[21]["ms"],
-         "plain_ms": t[21]["plain_ms"]},
+         "max_abs_err": err2, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None},
     ]
     for name, k, tpu in (("merge_fold", "K3", K3_TPU),
                          ("aggregate_fold", "K4", K4_TPU),
@@ -1155,14 +1519,21 @@ def main() -> int:
             "replaces": tpu, "launches": launches[k],
             "mismatches": r["mismatches"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"][0], "plain_ms": r["plain_ms"][0],
-            "ms_each_shape": r["ms"], "plain_ms_each_shape": r["plain_ms"]})
+            "bound_ms": r["bound_ms"][0], "bound_by": "bytes",
+            "library_ms": r["library_ms"][0],
+            "ms_each_shape": r["ms"], "plain_ms_each_shape": r["plain_ms"],
+            "bound_ms_each_shape": r["bound_ms"],
+            "library_ms_each_shape": r["library_ms"]})
     kernels.append({
         "name": "compact_live", "route": "cuda", "source": MERGE_SOURCE,
         "replaces": K7_TPU, "launches": k7["launches"],
         "mismatches": k7["mismatches"], "max_abs_err": k7["max_abs_err"],
         "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+        "bound_ms": k7["bound_ms"], "bound_by": "bytes",
+        "library_ms": k7["plain_ms"],
         "ms_each_shape": [r["ms"] for r in k7["shapes"]],
-        "plain_ms_each_shape": [r["plain_ms"] for r in k7["shapes"]]})
+        "plain_ms_each_shape": [r["plain_ms"] for r in k7["shapes"]],
+        "bound_ms_each_shape": [r["bound_ms"] for r in k7["shapes"]]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -57,14 +57,22 @@ def library_path() -> str:
         BUILD_DIR, f"libkmerutils_kernels_{h.hexdigest()[:16]}.so"))
 
 
+class TournamentPlan(ctypes.Structure):
+    """struct Plan of csrc/tournament.cu (ops/tournament.py::Plan)."""
+    _fields_ = [("tiles", ctypes.c_longlong)] + [
+        (f, ctypes.c_int) for f in ("rows", "slots", "span", "chunk", "sub",
+                                    "spans", "slot_groups")]
+
+
 def _declare(lib) -> None:
     vp, ci, ll, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_uint
-    lib.launch_tournament_u32.restype = ci
-    lib.launch_tournament_u32.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
-    lib.launch_tournament_u64.restype = ci
-    lib.launch_tournament_u64.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                                          ci, vp]
+    lib.tournament_config.restype = ci
+    lib.tournament_config.argtypes = [ci, ci, ctypes.POINTER(ci)]
+    lib.launch_tournament.restype = ci
+    lib.launch_tournament.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ll, ci,
+                                      ci, ci, ctypes.POINTER(TournamentPlan),
+                                      vp]
     lib.aggregate_scratch_words.restype = ll
     lib.aggregate_scratch_words.argtypes = [ll]
     lib.launch_merge.restype = ci

@@ -11,15 +11,22 @@ i.e. minimising the exponential draw E = -ln(u) / w_p.  K1 takes u32 items
 position, ties -> first position); K2 takes u64 items as lo/hi halves
 (x_p = lo ^ hi, ties -> first position, returns the winner's halves).
 Positions with winv <= 0 never win; a row without a valid position gives 0.
+The plain versions state this order directly (the largest e, then the
+smallest payload among equal e); the kernels pack it into one u64 key.
 
 The device of the inputs picks the implementation: a CUDA tensor launches
 the hand-written kernel of csrc/tournament.cu (built on first use by
-_build.py) or raises; a CPU tensor runs the plain PyTorch version
-(``*_ref``), which is also what the kernels are checked against on the card.
-u32 data crosses this boundary as int32 bit patterns.
+_build.py), cut into tiles by :func:`plan`, or raises; a CPU tensor runs
+the plain PyTorch version (``*_ref``), which is also what the kernels are
+checked against on the card.  u32 data crosses this boundary as int32 bit
+patterns.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -66,6 +73,137 @@ def _check_inputs(halves, winv, m: int) -> torch.device:
     return dev
 
 
+# ---------------------------------------------------------------------------
+# the work plan of the kernels
+# ---------------------------------------------------------------------------
+
+# the kernels' constants (csrc/tournament.cu): threads per block, staged
+# (row, position) entries per chunk, (row, slot) keys per tile, slots a
+# thread sweeps together
+_THREADS, _STAGE, _MAX_PAIRS, _GROUP = 256, 2048, 1024, 8
+_WAVES = 8               # tiles per resident block wanted before splitting
+_MIN_SPAN = 512          # fewest positions of a split row per tile
+_MIN_UNITS = 3 * _THREADS  # units per tile wanted
+_MIN_SWEEP = 8           # fewest positions per (row, slot group, subset) unit
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the kernels cut an [n, P] x m tournament into tiles.  A tile is
+    ``rows`` rows x ``span`` positions x ``slots`` slots; tile t is
+    ((row group * spans) + span index) * slot_groups + slot group.  Its
+    positions are staged ``chunk`` at a time, and each (row, group of
+    _GROUP slots) is swept as ``sub`` interleaved position subsets.  Rows
+    are split (their keys meet in a scratch) when ``spans`` > 1."""
+    rows: int
+    slots: int
+    span: int
+    chunk: int
+    sub: int
+    row_groups: int
+    spans: int
+    slot_groups: int
+
+    @property
+    def tiles(self) -> int:
+        return self.row_groups * self.spans * self.slot_groups
+
+    @property
+    def split(self) -> bool:
+        return self.spans > 1
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(n: int, P: int, m: int, sms: int = 132, per_sm: int = 4) -> Plan:
+    """The tile plan for ``sms`` streaming multiprocessors holding
+    ``per_sm`` blocks each: as many short rows per tile as the staging and
+    key buffers hold; the positions of a row split over spans of at least
+    _MIN_SPAN until the tiles make _WAVES waves (a tile's time is then a
+    small share of the whole, so the last wave leaves the card little idle
+    time); and the fewest position subsets that give a block _MIN_UNITS
+    units, each still sweeping _MIN_SWEEP positions."""
+    slots = max(1, min(m, _MAX_PAIRS))
+    slot_groups = _cdiv(m, slots)
+    rows = max(1, min(n, _STAGE // max(P, 1), _MAX_PAIRS // slots))
+    chunk = _STAGE // rows
+    row_groups = _cdiv(n, rows)
+    whole = row_groups * slot_groups
+    want = _WAVES * sms * per_sm
+    spans = 1
+    if 0 < whole < want and P > _MIN_SPAN:
+        spans = min(_cdiv(P, _MIN_SPAN), _cdiv(want, whole))
+    span = _cdiv(P, spans)
+    spans = _cdiv(P, span) if P else 1
+    groups = rows * _cdiv(slots, _GROUP)
+    sweep = max(1, min(chunk, span))
+    sub = 1
+    while sub * groups < _MIN_UNITS and sub < 256 \
+            and sweep // (2 * sub) >= _MIN_SWEEP:
+        sub *= 2
+    return Plan(rows=rows, slots=slots, span=span, chunk=chunk, sub=sub,
+                row_groups=row_groups, spans=spans, slot_groups=slot_groups)
+
+
+_devices: dict = {}      # (device index, wide, positions) -> (SMs, blocks)
+_slotc: dict = {}        # (m, seed, device) -> int32 slot constants
+
+
+def launch_plan(dev: torch.device, n: int, P: int, m: int, wide: bool,
+                pos: bool = False) -> Plan:
+    """The plan a launch on CUDA device ``dev`` uses: :func:`plan` with the
+    card's SM count and the kernel's resident blocks per SM.  The library
+    reports those blocks with its tile constants, which must be this
+    module's: the plan and the kernel cut tiles with the same numbers."""
+    from .. import _build
+    key = (dev.index, wide, pos and not wide)
+    if key not in _devices:
+        cfg = (ctypes.c_int * 5)()
+        with torch.cuda.device(dev):
+            err = _build.load().tournament_config(int(wide), int(pos), cfg)
+        if err:
+            raise RuntimeError(f"tournament occupancy query failed: CUDA "
+                               f"error {err}")
+        if tuple(cfg[1:]) != (_THREADS, _STAGE, _MAX_PAIRS, _GROUP):
+            raise RuntimeError(f"csrc/tournament.cu's tile constants "
+                               f"{tuple(cfg[1:])} != (_THREADS, _STAGE, "
+                               f"_MAX_PAIRS, _GROUP) here")
+        _devices[key] = (torch.cuda.get_device_properties(dev)
+                         .multi_processor_count, cfg[0])
+    return plan(n, P, m, *_devices[key])
+
+
+@functools.lru_cache(maxsize=256)
+def _c_plan(pl: Plan):
+    """``pl`` as the C struct launch_tournament takes."""
+    from .. import _build
+    return _build.TournamentPlan(
+        tiles=pl.tiles, rows=pl.rows, slots=pl.slots, span=pl.span,
+        chunk=pl.chunk, sub=pl.sub, spans=pl.spans,
+        slot_groups=pl.slot_groups)
+
+
+def _launch(wide: bool, a, b, winv, m: int, seed: int, pos: bool, outs):
+    from .. import _build
+    lib = _build.load()
+    n, P = a.shape
+    dev = a.device
+    pl = launch_plan(dev, n, P, m, wide, pos)
+    if (m, seed, dev) not in _slotc:
+        _slotc[(m, seed, dev)] = slot_consts(m, seed, dev).to(torch.int32)
+    slotc = _slotc[(m, seed, dev)]
+    scratch = torch.empty((n, m), dtype=torch.int64, device=dev) \
+        if pl.split else None
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    _build.launch(lib.launch_tournament, int(wide), a.data_ptr(), ptr(b),
+                  winv.data_ptr(), slotc.data_ptr(), outs[0].data_ptr(),
+                  ptr(outs[1]), ptr(scratch), n, P, m, int(pos),
+                  ctypes.byref(_c_plan(pl)), device=dev)
+
+
 def weighted_tournament(items: torch.Tensor, winv: torch.Tensor, m: int,
                         seed: int = 0,
                         return_positions: bool = False) -> torch.Tensor:
@@ -76,14 +214,8 @@ def weighted_tournament(items: torch.Tensor, winv: torch.Tensor, m: int,
     dev = _check_inputs((items,), winv, m)
     if dev.type == "cpu":
         return weighted_tournament_ref(items, winv, m, seed, return_positions)
-    from .. import _build
-    lib = _build.load()
-    n, P = items.shape
-    slotc = slot_consts(m, seed, dev).to(torch.int32)
-    out = torch.empty((n, m), dtype=torch.int32, device=dev)
-    _build.launch(lib.launch_tournament_u32, items.data_ptr(),
-                  winv.data_ptr(), slotc.data_ptr(), out.data_ptr(), n, P, m,
-                  int(bool(return_positions)), device=dev)
+    out = torch.empty((items.shape[0], m), dtype=torch.int32, device=dev)
+    _launch(False, items, None, winv, m, seed, return_positions, (out, None))
     launches_u32 += 1
     return out
 
@@ -96,15 +228,9 @@ def weighted_tournament_u64(lo: torch.Tensor, hi: torch.Tensor,
     dev = _check_inputs((lo, hi), winv, m)
     if dev.type == "cpu":
         return weighted_tournament_u64_ref(lo, hi, winv, m, seed)
-    from .. import _build
-    lib = _build.load()
-    n, P = lo.shape
-    slotc = slot_consts(m, seed, dev).to(torch.int32)
-    out_lo = torch.empty((n, m), dtype=torch.int32, device=dev)
-    out_hi = torch.empty((n, m), dtype=torch.int32, device=dev)
-    _build.launch(lib.launch_tournament_u64, lo.data_ptr(), hi.data_ptr(),
-                  winv.data_ptr(), slotc.data_ptr(), out_lo.data_ptr(),
-                  out_hi.data_ptr(), n, P, m, device=dev)
+    out_lo = torch.empty((lo.shape[0], m), dtype=torch.int32, device=dev)
+    out_hi = torch.empty_like(out_lo)
+    _launch(True, lo, hi, winv, m, seed, True, (out_lo, out_hi))
     launches_u64 += 1
     return out_lo, out_hi
 

@@ -195,3 +195,262 @@ def test_near_tie_check_accepts_ties_and_rejects_others():
     assert not near_tie(x[a], 1, x[b], 1, sc)          # same weight
     far = int(np.argmax(np.abs(e1 - e2[b])))
     assert not near_tie(x[far], 1, x[b], 2, sc)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' work plan and their packed-key order
+# ---------------------------------------------------------------------------
+
+def tile_bounds(pl, n: int, P: int, m: int, t):
+    """(r0, r1, c0, c1, s0, s1) of tiles t (int64 array): the rows,
+    positions and slots each covers, with csrc/tournament.cu's tile
+    arithmetic."""
+    sg = t % pl.slot_groups
+    rest = t // pl.slot_groups
+    c0 = (rest % pl.spans) * pl.span
+    r0 = (rest // pl.spans) * pl.rows
+    s0 = sg * pl.slots
+    mn = np.minimum
+    return (r0, mn(r0 + pl.rows, n), c0, mn(c0 + pl.span, P), s0,
+            mn(s0 + pl.slots, m))
+
+
+def _partition(lo, hi, length):
+    """The distinct [lo, hi) ranges tile [0, length) without gaps or
+    overlaps; returns how many there are."""
+    iv = sorted(set(zip(lo.tolist(), hi.tolist())))
+    assert iv[0][0] == 0 and iv[-1][1] == length
+    assert all(a[1] == b[0] for a, b in zip(iv, iv[1:]))
+    assert all(a < b for a, b in iv) or length == 0
+    return len(iv)
+
+
+@pytest.mark.parametrize("n,P", [(1, 6_123_500), (1024, 5993),
+                                 (129_195, 512), (3, 16_384), (0, 700),
+                                 (5, 0)])
+@pytest.mark.parametrize("m", [200, 13])
+def test_plan_covers_every_row_position_and_slot_once(n, P, m):
+    pl = T.plan(n, P, m, sms=132)
+    assert pl.rows * pl.slots <= T._MAX_PAIRS
+    assert pl.rows * pl.chunk <= T._STAGE and pl.sub in (1 << np.arange(9))
+    if n == 0:
+        assert pl.tiles == 0
+        return
+    t = np.arange(pl.tiles, dtype=np.int64)
+    r0, r1, c0, c1, s0, s1 = tile_bounds(pl, n, P, m, t)
+    counts = (_partition(r0, r1, n), _partition(c0, c1, P),
+              _partition(s0, s1, m))
+    # every (row range, position range, slot range) once: each (row,
+    # position, slot) lies in exactly one tile
+    assert len(set(zip(r0.tolist(), c0.tolist(), s0.tolist()))) == pl.tiles
+    assert pl.tiles == counts[0] * counts[1] * counts[2]
+    assert int(((r1 - r0) * (c1 - c0) * (s1 - s0)).sum()) == n * P * m
+
+
+@pytest.mark.parametrize("per_sm", [4, 5, 8])
+def test_plan_fills_the_card_for_every_row_shape(per_sm):
+    sms = 132
+    waves = T._WAVES * sms * per_sm
+    one = T.plan(1, 6_123_500, 200, sms, per_sm)    # sketch_collection
+    assert one.split and one.tiles >= 0.99 * waves   # spans round down
+    tail = T.plan(3, 16_384, 200, sms, per_sm)      # a tail batch
+    assert tail.split and tail.span == T._MIN_SPAN
+    bench = T.plan(1024, 5993, 200, sms, per_sm)    # the bench shape
+    assert bench.split and bench.tiles >= 0.99 * waves and bench.rows == 1
+    block = T.plan(16_384, 512, 200, sms, per_sm)   # block mode
+    assert not block.split and block.rows > 1
+    many = T.plan(10_000, 16_000, 200, sms, per_sm)  # long reads, many
+    assert not many.split
+    for pl in (one, tail, bench, block, many):
+        units = pl.sub * pl.rows * -(-pl.slots // T._GROUP)
+        assert T._MIN_UNITS <= units < 2 * T._MIN_UNITS
+
+
+def test_plan_struct_has_the_kernels_layout():
+    """struct Plan {long long tiles; int rows, slots, span, chunk, sub,
+    spans, slot_groups;} of csrc/tournament.cu, filled from a Plan."""
+    import ctypes
+    from kmerutils_tpu_torch import _build
+    S = _build.TournamentPlan
+    assert ctypes.sizeof(S) == 40
+    assert [getattr(S, f).offset for f, _ in S._fields_] == \
+        [0, 8, 12, 16, 20, 24, 28, 32]
+    pl = T.plan(3, 16_384, 200, 132, 4)
+    c = T._c_plan(pl)
+    assert (c.tiles, c.rows, c.slots, c.span, c.chunk, c.sub, c.spans,
+            c.slot_groups) == (pl.tiles, pl.rows, pl.slots, pl.span,
+                               pl.chunk, pl.sub, pl.spans, pl.slot_groups)
+
+
+def better(a, b):
+    """The JAX kernel's comparator: larger e, then smaller payload."""
+    return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def pack(e: np.float32, pay: int) -> int:
+    """csrc/tournament.cu's pack(): order32(e) << 32 | ~payload for a
+    finite e <= 0 (+0 and -0 alike) and a u32 payload."""
+    bits = int(np.float32(e).view(np.uint32))
+    hi = (~bits & 0xFFFFFFFF) if e < 0 else 0x7FFFFFFF
+    return hi << 32 | (~int(pay) & 0xFFFFFFFF)
+
+
+def test_packed_key_max_is_the_comparator_on_adversarial_ties():
+    rng = np.random.default_rng(11)
+    es = np.array([0.0, -0.0, -1e-30, -np.float32(2.0**-24),
+                   np.log(np.float32(1 - 2.0**-24)), -0.5, -0.5, -16.6355,
+                   -3.4e37], np.float32)
+    pays = np.array([0, 1, 7, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE,
+                     0xFFFFFFFF], np.int64)
+    for _ in range(200):
+        k = int(rng.integers(2, 9))
+        e = rng.choice(es, size=k)
+        pay = rng.choice(pays, size=k)
+        keys = [pack(ei, pi) for ei, pi in zip(e, pay)]
+        win = int(np.argmax(keys))
+        best = 0
+        for i in range(1, k):
+            if better((e[i], pay[i]), (e[best], pay[best])):
+                best = i
+        assert (e[win], pay[win]) == (e[best], pay[best])
+        assert 0 < min(keys) and max(keys) < 1 << 63
+        # 0 stays "no valid position"; the keys are positive as int64
+
+
+def unit_draw_item(slot_const: int, h: int) -> int:
+    """The u32 x with mix32(x ^ slot_const) = h (h >= 0xFFFFFF00: u = 1)."""
+    def inv(a):
+        return pow(a, -1, 1 << 32)
+    y = (h * inv(0x85EBCA77)) & 0xFFFFFFFF
+    z = y ^ (y >> 15) ^ (y >> 30)
+    return ((z * inv(0x9E3779B1)) & 0xFFFFFFFF) ^ slot_const
+
+
+def tie_case(wide: bool, slot: int = 3, n: int = 3, P: int = 600):
+    """Unsorted rows with repeats of equal and other weights, and in row 0
+    two items that draw u = 1 in ``slot`` with other weights."""
+    items, w, valid, winv = case(21, wide, n=n, P=P)
+    rng = np.random.default_rng(22)
+    rep = rng.random((n, P)) < 0.3
+    rep[:, 0] = False
+    for r in range(n):                       # runs of repeats
+        for p in np.flatnonzero(rep[r]):
+            items[r, p] = items[r, p - 1]
+            if rng.random() < 0.5:
+                w[r, p] = w[r, p - 1]
+    sc = int(T.slot_consts(M)[slot])
+    x5, x9 = (unit_draw_item(sc, h) for h in (0xFFFFFFFF, 0xFFFFFF00))
+    top = 0x9ABCDEF0
+    items[0, 5] = (x5 ^ top) | (top << 32) if wide else x5
+    items[0, 9] = x9
+    w[0, 5], w[0, 9] = 2, 1
+    valid[0, [5, 9]] = True
+    w = np.where(valid, w, 0)
+    winv = np.where(valid, 1.0 / np.maximum(w, 1), 0.0).astype(np.float32)
+    return items, w, valid, winv
+
+
+def test_unit_draw_and_repeats_match_jax():
+    sc = int(T.slot_consts(M)[3])
+    for wide in (False, True):
+        items, w, valid, winv = tie_case(wide)
+        live = valid.any(axis=1)
+        if wide:
+            lo = (items & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+            hi = (items >> np.uint64(32)).astype(np.uint32)
+            glo, ghi = T.weighted_tournament_u64(ti32(lo), ti32(hi),
+                                                 torch.from_numpy(winv), M)
+            got = ((ghi.numpy().view(np.uint32).astype(np.uint64)
+                    << np.uint64(32)) | glo.numpy().view(np.uint32))
+            plo, phi = j_wt64(lo, hi, winv, M, seed=0, interpret=True)
+            want = ((np.asarray(phi).astype(np.uint64) << np.uint64(32))
+                    | np.asarray(plo).astype(np.uint64))
+            fold = (lo ^ hi).astype(np.uint32)
+            pa = first_position(items, w, got)[live]
+            pb = first_position(items, w, want)[live]
+            assert_exact_or_near_ties(pa, pb, fold[live], w[live], M)
+            x = int(fold[0, pa[0, 3]])
+        else:
+            for pos in (False, True):
+                got = T.weighted_tournament(ti32(items),
+                                            torch.from_numpy(winv), M,
+                                            return_positions=pos).numpy()
+                want = np.asarray(j_wt(items, winv, M, seed=0, interpret=True,
+                                       return_positions=pos))
+                if not pos:
+                    got = first_position(items, w, got.view(np.uint32))
+                    want = first_position(items, w, want)
+                assert_exact_or_near_ties(got[live], want[live].astype(
+                    np.int64), items[live], w[live], M)
+            x = int(items[0, got[0, 3]])
+        h = ((((x ^ sc) & 0xFFFFFFFF) * 0x9E3779B1) & 0xFFFFFFFF)
+        h = ((h ^ (h >> 15)) * 0x85EBCA77) & 0xFFFFFFFF
+        assert h >> 8 == 0xFFFFFF              # a u = 1 draw won slot 3
+
+
+def test_skipping_a_repeat_of_the_position_before_is_exact():
+    """What the kernels' staging does: a position whose draw input and
+    winv equal the position before it is dropped.  The plain versions give
+    the same winners with and without those positions."""
+    for wide in (False, True):
+        items, w, valid, winv = tie_case(wide)
+        x = ((items ^ (items >> np.uint64(32))) if wide else items) \
+            .astype(np.uint64) & np.uint64(0xFFFFFFFF)
+        rep = np.zeros_like(valid)
+        rep[:, 1:] = (x[:, 1:] == x[:, :-1]) & (winv[:, 1:] == winv[:, :-1])
+        assert (rep & (winv > 0)).sum() > 100
+        skipped = np.where(rep, 0.0, winv).astype(np.float32)
+        if wide:
+            lo, hi = ti32(items & np.uint64(0xFFFFFFFF)), ti32(
+                items >> np.uint64(32))
+            a = T.weighted_tournament_u64(lo, hi, torch.from_numpy(winv), M)
+            b = T.weighted_tournament_u64(lo, hi, torch.from_numpy(skipped), M)
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        else:
+            for pos in (False, True):
+                a = T.weighted_tournament(ti32(items), torch.from_numpy(winv),
+                                          M, return_positions=pos)
+                b = T.weighted_tournament(ti32(items),
+                                          torch.from_numpy(skipped), M,
+                                          return_positions=pos)
+                assert torch.equal(a, b)
+
+
+SASS = """
+        Function : _ZN12_GLOBAL__N_117tournament_kernelILb0EEEvPKj
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.64 R2, [R0] ;
+        /*0020*/                   IMAD R4, R3, 0x9e3779b1, RZ ;
+        /*0030*/              @!P0 BRA 0x60 ;
+        /*0040*/                   I2FP.F32.U32 R4, R4 ;
+        /*0050*/                   IMAD R5, R2, 0x9e3779b1, RZ ;
+        /*0060*/                   FMUL R5, R4, R4 ;
+        /*0070*/               @P1 BRA 0x10 ;
+        /*0080*/                   IADD3 R0, R0, 0x1, RZ ;
+        /*0090*/               @P2 BRA 0x10 ;
+        /*00a0*/                   EXIT ;
+"""
+
+
+def test_sass_draw_loop_is_the_innermost_loop_with_draws(monkeypatch):
+    from kmerutils_tpu_torch import roofline
+
+    class Done:
+        stdout = SASS
+    monkeypatch.setattr(roofline.subprocess, "run", lambda *a, **k: Done())
+    monkeypatch.setattr(roofline, "_cuobjdump", lambda: "cuobjdump")
+    (name, r), = roofline.tournament_instructions_per_draw("lib.so").items()
+    assert "ILb0E" in name
+    assert r["instructions"] == 7 and r["draws"] == 2
+    assert r["instructions_per_draw"] == 3.5 and r["range"] == ["0x10", "0x70"]
+
+
+def test_tournament_work_counts_needed_draws_and_bytes():
+    from kmerutils_tpu_torch import roofline
+    x = torch.tensor([[5, 5, 5, 7, 7], [1, 2, 3, 4, 5]], dtype=torch.int32)
+    w = torch.tensor([[1.0, 1.0, 0.5, 0.5, 0.0], [0.0, 1, 1, 1, -1]])
+    draws, nbytes = roofline.tournament_work(x, w, 3, wide=False)
+    assert draws == (3 + 3) * 3                # row 0: 5@1, 5@.5, 7@.5
+    assert nbytes == 2 * 5 * 8 + 2 * 3 * 4
+    b, by = roofline.bound(1e9, 3.35e8, sms=1, clock_hz=1e9)
+    assert by == "operations" and b > roofline.bytes_ms(1e9)
