@@ -36,9 +36,16 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    (aggregate_compact) vs their plain versions on the card, exact, at the
    counting path's shapes (two 8 Mi-entry runs; an 8 Mi-entry batch into
    ~40 M live entries at capacity 2^26; ~50 M entries, half duplicates,
-   counts near 2^32, coordinates, with and without a count filter), each
-   timed against its plain version, its bytes bound and, for K3/K5, a
-   stable ``torch.sort`` of the concatenated keys (``library_ms``);
+   counts near 2^32: u32 keys with and without coordinates and a count
+   filter, u64 keys with coordinates), each timed against its plain
+   version, its bytes bound and, for K3/K5, a stable ``torch.sort`` of the
+   concatenated keys (``library_ms``), K4/K6 also by profiler device time,
+   in all and for each of their kernels;
+   then K4/K6 exact at the layouts of ``agg_layouts`` around their tile
+   (a run of 3.5 tiles, runs ending on and one past tile boundaries, all
+   keys distinct, sums saturating only across a tile boundary, lo/hi
+   dropping runs that span tiles, n = 0, 1, tile - 1, tile, tile + 1),
+   u32 and u64 keys, with and without coordinates;
 8. the counting slice: ``parsefastq kmer --count -s 16``, ``--unique -s 21``
    and a spill run (``--capacity 4194304``, small batches, first 2,000
    reads) through the CLI entry point on ``cuda`` over a seeded
@@ -72,7 +79,8 @@ builds that tree's kernels into ROOT/build/ and compares its K1/K2 with
 this tree's through both packages' public wrappers, in turns (baseline,
 this, this, baseline): at phase 6's shapes and sketch_collection's row,
 CUDA-event ms, host ms to enqueue one call and device ms (torch.profiler),
-every result equal to the plain version; then ``datasketcher -b 512 -k 8``
+every result equal to the plain version; K4/K6 at phase 7's timed shapes
+the same way (event ms and device ms); then ``datasketcher -b 512 -k 8``
 of each package over phase 5's ONT-like file (wall ms, device ms, the
 tournament kernels' device ms).  It prints one JSON line per result and
 the card line, and no ``ok`` line.
@@ -93,6 +101,7 @@ import importlib
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -656,6 +665,106 @@ def coords(rng, n: int):
     return rng.integers(0, 1 << 63, size=n, dtype=np.int64)
 
 
+def short_runs(rng, n: int, longest: int = 40):
+    """Run lengths 1..longest summing to n."""
+    lens = rng.integers(1, longest + 1, size=n // 2 + 1)
+    lens = lens[: np.searchsorted(np.cumsum(lens), n) + 1]
+    lens[-1] -= lens.sum() - n
+    return lens[lens > 0]
+
+
+def runs_at(rng, n: int, cuts, quiet=()):
+    """Run lengths over n entries ending at the given cut points (exclusive
+    run ends) and at random ones, none of those inside the ``quiet``
+    ranges [a, b)."""
+    cand = np.cumsum(short_runs(rng, n))
+    for a, b in quiet:
+        cand = cand[(cand <= a) | (cand >= b)]
+    ends = np.union1d(cand, [c for c in cuts if 0 < c < n])
+    ends = np.union1d(ends[ends < n], [n])
+    return np.diff(ends, prepend=0)
+
+
+def agg_layouts(rng, tile: int):
+    """Adversarial inputs of K4/K6 around their tile of ``tile`` entries:
+    (name, run lengths, u32 counts per entry, lo, hi).  Counts are small
+    except where a case needs them large; ``hi`` None keeps every count."""
+    T = tile
+    M = 0xFFFFFFFF
+
+    def small(n):
+        return rng.integers(0, 10, size=n).astype(np.uint32)
+
+    cases = []
+    # one run of 3.5 tiles between short runs
+    lens = np.concatenate([short_runs(rng, T + 77), [3 * T + T // 2],
+                           short_runs(rng, T)])
+    cases.append(("long_run", lens, small(int(lens.sum())), 2, None))
+    # runs ending exactly on a tile boundary and one entry after one; a
+    # run starting on a boundary; runs ending at a piece's last lane
+    n = 6 * T + 5
+    lens = runs_at(rng, n, [T, T + 1, 2 * T + 1, 3 * T - 1, 3 * T, 3 * T + 1,
+                            4 * T + 32, 4 * T + 64, 5 * T],
+                   quiet=[(2 * T - 60, 2 * T + 1), (5 * T - 300, 5 * T)])
+    cases.append(("tile_edges", lens, small(n), 1, None))
+    cases.append(("tile_edges_lo2", lens, small(n), 2, 7))
+    # all entries distinct
+    n = 2 * T + T // 2
+    cases.append(("distinct", np.ones(n, np.int64), small(n), 1, None))
+    cases.append(("distinct_lo1_hi4", np.ones(n, np.int64), small(n), 1, 4))
+    # sums that saturate only across a tile boundary: each tile's part of
+    # a run stays below 2^32 - 1
+    n = 4 * T
+    cnt = small(n)
+    cnt[T - 3: T + 3] = [0x7FFFFFFF, 1, 1, 1, 1, 0x7FFFFFFF]
+    cnt[2 * T - 1], cnt[2 * T] = 0x80000000, 0x7FFFFFFF   # exactly 2^32 - 1
+    cnt[3 * T - 1], cnt[3 * T] = 0x80000000, 0x80000000   # exactly 2^32
+    # and, for contrast, runs saturating inside one piece of 32 entries
+    # and across two pieces of one tile
+    h = T // 2
+    cnt[100:103] = 0xFFFFFFF0
+    cnt[h - 20], cnt[h + 20] = 0x90000000, 0x90000000
+    lens = runs_at(rng, n, [100, 103, h - 20, h + 21, T - 3, T + 3, 2 * T - 1,
+                            2 * T + 1, 3 * T - 1, 3 * T + 1],
+                   quiet=[(100, 103), (h - 20, h + 21), (T - 3, T + 3)])
+    cases.append(("saturate_across", lens, cnt, 1, None))
+    cases.append(("saturate_across_hi", lens, cnt, 1, M - 1))
+    # lo / hi that drop runs spanning several tiles: a run of 2.5 tiles of
+    # count 1 (above hi), a run of 1.5 tiles of count 0 (below lo), and a
+    # run of 2 tiles summing to 500 (kept)
+    a, b, c = 2 * T + T // 2, T + T // 2, 2 * T
+    lens = np.concatenate([short_runs(rng, T - 9), [a], short_runs(rng, 50),
+                           [b], short_runs(rng, 70), [c],
+                           short_runs(rng, T)])
+    cnt = small(int(lens.sum()))
+    o = T - 9
+    cnt[o: o + a] = 1
+    o += a + 50
+    cnt[o: o + b] = 0
+    o += b + 70
+    cnt[o: o + c] = 0
+    cnt[o + rng.choice(c, 500, replace=False)] = 1
+    cases.append(("filter_spanning", lens, cnt, 2, 1000))
+    # tiny and edge lengths
+    for n in (0, 1, T - 1, T, T + 1):
+        lens = short_runs(rng, n, 5) if n else np.zeros(0, np.int64)
+        cases.append((f"n={n}", lens, small(n), 1 if n % 2 else 2, None))
+    return cases
+
+
+def layout_keys(rng, lens, wide: bool):
+    """Ascending keys with runs of the given lengths (int32 / int64 bit
+    patterns), from 2^31 (u32) or 2^63 (u64) up, never all ones."""
+    n_runs = len(lens)
+    top = (1 << 31) - 2 if not wide else (1 << 62)
+    gaps = rng.integers(1, max(2, top // max(n_runs, 1)), size=n_runs,
+                        dtype=np.uint64)
+    base = np.uint64(1 << 63) if wide else np.uint64(1 << 31)
+    keys = np.repeat(base + np.cumsum(gaps, dtype=np.uint64), lens)
+    return keys.view(np.int64) if wide else keys.astype(np.uint32).view(
+        np.int32)
+
+
 def to_dev(torch, a):
     return None if a is None else torch.from_numpy(a).to("cuda")
 
@@ -766,47 +875,143 @@ def merge_kernels_vs_plain(torch, rng, card: str, bounds: Bounds,
                sort_ms(t_key[:used], b_key))
         del t_key, t_cnt, t_crd, b_key, b_crd, args, got, want
 
-    for wide, lo, hi in ((False, 2, (1 << 31)), (True, 1, None)):
+    from kmerutils_tpu_torch import _build
+    from kmerutils_tpu_torch.profile_sketch import profile
+    check(_build.load().aggregate_tile_entries() == M.AGG_TILE,
+          "K4/K6 tile of csrc/merge.cu != ops/merge.AGG_TILE")
+    for sentinel, args, what in aggregate_shapes(torch, rng, n_agg, cap,
+                                                 dead):
+        fn, ref = agg_fns(M, sentinel)
+        name = fn.__name__
+        kern = functools.partial(fn, *args)
+        plain = functools.partial(ref, *args)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        check(got[3] == want[3], f"{name} n_live {got[3]} != {want[3]}")
+        k = args[0]
+        bad, err = compare(torch, got[:3], want[:3],
+                           k.numel() if sentinel else got[3])
+        ms, pms, runs = turns(torch, kern, plain)
+        prof = profile(kern, 5)
+        print(json.dumps({"timing": name, "shape": what,
+                          "device_ms": prof["device_ms_per_call"],
+                          "kernel_ms": kernel_split(prof), "card": card}),
+              flush=True)
+        record(name, bad, err, ms, pms, runs,
+               f"{what}, n_live={got[3]}", aggregate_bytes(args, got[3]))
+        del k, args, kern, plain, got, want
+    torch.cuda.empty_cache()
+    for name, bad, err in aggregate_layout_checks(torch, rng, M):
+        r = res[name]
+        r["mismatches"] += bad
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        check(bad == 0 and err == 0, f"{name} != plain at the tile layouts")
+    return res
+
+
+def kernel_split(prof: dict) -> dict:
+    """Device ms per call of each kernel in a profile_sketch.profile result,
+    keyed by the kernel's name without its namespace and arguments."""
+    out = {}
+    for name, ms in prof["top_kernels_ms_per_call"]:
+        short = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                       name).strip()
+        out[short] = out.get(short, 0.0) + ms
+    return out
+
+
+def agg_fns(M, sentinel: bool):
+    """K6 (aggregate_compact) or K4 (aggregate_fold) of merge module M and
+    its plain version."""
+    if sentinel:
+        return M.aggregate_compact, M.aggregate_compact_ref
+    return M.aggregate_fold, M.aggregate_fold_ref
+
+
+def aggregate_bytes(args, n_live: int) -> int:
+    """Bytes K4/K6 must move: every input entry read once, each kept run
+    written once (K6: the whole output, its all-ones tail included)."""
+    k, c, r = args[:3]
+    ent = k.element_size() + 4 + (0 if r is None else 8)
+    n_in = args[3] if len(args) == 6 else k.numel()
+    return ent * (n_in + (n_in if len(args) == 5 else n_live))
+
+
+def aggregate_shapes(torch, rng, n_agg: int = 50_000_000, cap: int = 1 << 26,
+                     dead: int = 1 << 20):
+    """The timed K4/K6 shapes: (sentinel, wrapper args, description).
+    ~50 M sorted entries, half of them repeating the previous key, counts
+    1-9 with a tenth near 2^32 (saturating sums): u32 keys with lo=2 and
+    hi=2^31, with coordinates and without (the --count path's variant),
+    and u64 keys with coordinates, lo=1.  K4 gets a table of capacity 2^26
+    with a live prefix, K6 the raw arrays with a dead (all ones) tail."""
+    for wide, lo, hi, crds in ((False, 2, 1 << 31, (True, False)),
+                               (True, 1, None, (True,))):
         key = sorted_keys(rng, n_agg, wide, 0.5)
         cnt = rng.integers(1, 10, size=n_agg).astype(np.uint32)
         cnt[rng.random(n_agg) < 0.1] = 0xFFFFFF00    # saturating sums
         cnt = cnt.view(np.int32)
-        crd = coords(rng, n_agg)
-        for sentinel in (False, True):
-            if sentinel:   # K6: raw arrays, dead (all ones) tail
-                k = np.concatenate([key, np.full(dead, -1, key.dtype)])
-                c = np.concatenate([cnt, np.full(dead, -1, np.int32)])
-                r = np.concatenate([crd, np.full(dead, -1, np.int64)])
-            else:          # K4: a table of capacity 2^26, live prefix
-                pad = cap - n_agg
-                k = np.concatenate([key, np.zeros(pad, key.dtype)])
-                c = np.concatenate([cnt, np.zeros(pad, np.int32)])
-                r = np.concatenate([crd, np.zeros(pad, np.int64)])
-            k, c, r = to_dev(torch, k), to_dev(torch, c), to_dev(torch, r)
-            fn, ref, args = (
-                (M.aggregate_compact, M.aggregate_compact_ref,
-                 (k, c, r, lo, hi)) if sentinel else
-                (M.aggregate_fold, M.aggregate_fold_ref,
-                 (k, c, r, n_agg, lo, hi)))
-            name = fn.__name__
-            kern = functools.partial(fn, *args)
-            plain = functools.partial(ref, *args)
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            check(got[3] == want[3], f"{name} n_live {got[3]} != {want[3]}")
-            bad, err = compare(torch, got[:3], want[:3],
-                               k.numel() if sentinel else got[3])
-            ms, pms, runs = turns(torch, kern, plain)
-            ent = k.element_size() + 4 + 8
-            n_in = k.numel() if sentinel else n_agg
-            record(name, bad, err, ms, pms, runs,
-                   f"{n_agg} entries{f' + {dead} dead' if sentinel else ''},"
-                   f" {'u64' if wide else 'u32'} keys + coords, lo={lo} "
-                   f"hi={hi}, n_live={got[3]}",
-                   ent * (n_in + (n_in if sentinel else got[3])))
-            del k, c, r, got, want
-    torch.cuda.empty_cache()
-    return res
+        crd_all = coords(rng, n_agg)
+        for with_crd in crds:
+            crd = crd_all if with_crd else None
+            for sentinel in (False, True):
+                fill, n_pad = (-1, dead) if sentinel else (0, cap - n_agg)
+                k = to_dev(torch, np.concatenate(
+                    [key, np.full(n_pad, fill, key.dtype)]))
+                c = to_dev(torch, np.concatenate(
+                    [cnt, np.full(n_pad, fill, np.int32)]))
+                r = None if crd is None else to_dev(torch, np.concatenate(
+                    [crd, np.full(n_pad, fill, np.int64)]))
+                args = (k, c, r, lo, hi) if sentinel else \
+                    (k, c, r, n_agg, lo, hi)
+                yield sentinel, args, (
+                    f"{n_agg} entries{f' + {dead} dead' if sentinel else ''}"
+                    f", {'u64' if wide else 'u32'} keys"
+                    f"{' + coords' if with_crd else ''}, lo={lo} hi={hi}")
+                del k, c, r, args
+
+
+def aggregate_layout_checks(torch, rng, M):
+    """K4 and K6 against their plain versions at every layout of
+    agg_layouts (runs around the tile of ops/merge.AGG_TILE), with u32 and
+    u64 keys, with and without coordinates; K4 over a table with 37
+    entries of garbage behind its live prefix, K6 with a dead tail of a
+    third of the entries.  Yields (wrapper name, mismatches, max abs err)
+    for each call and prints one JSON line per layout."""
+    for case, lens, cnt, lo, hi in agg_layouts(rng, M.AGG_TILE):
+        n = int(lens.sum())
+        bad_case = 0
+        for wide in (False, True):
+            keys = layout_keys(rng, lens, wide)
+            crd = coords(rng, n)
+            for with_crd in (False, True):
+                for sentinel in (False, True):
+                    pad = n // 3 + 7 if sentinel else 37
+                    pk = np.full(pad, -1, keys.dtype) if sentinel else \
+                        layout_keys(rng, np.ones(pad, np.int64), wide)
+                    pc = np.full(pad, -1, np.int32) if sentinel else \
+                        rng.integers(0, 100, pad).astype(np.int32)
+                    pr = np.full(pad, -1, np.int64) if sentinel else \
+                        coords(rng, pad)
+                    k = to_dev(torch, np.concatenate([keys, pk]))
+                    c = to_dev(torch, np.concatenate([cnt.view(np.int32),
+                                                      pc]))
+                    r = to_dev(torch, np.concatenate([crd, pr])) \
+                        if with_crd else None
+                    args = (k, c, r, lo, hi) if sentinel else \
+                        (k, c, r, n, lo, hi)
+                    fn, ref = agg_fns(M, sentinel)
+                    got, want = fn(*args), ref(*args)
+                    torch.cuda.synchronize()
+                    check(got[3] == want[3], f"{fn.__name__} n_live at "
+                          f"{case}: {got[3]} != {want[3]}")
+                    bad, err = compare(torch, got[:3], want[:3],
+                                       k.numel() if sentinel else got[3])
+                    bad_case += bad
+                    yield fn.__name__, bad, err
+        print(json.dumps({"agg_layout": case, "n": n, "runs": len(lens),
+                          "lo": lo, "hi": hi, "mismatches": bad_case}),
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1366,7 +1571,7 @@ def rest_of_datasketcher(torch, rng, tmp: str, card: str, dev, fq8: str,
 
 
 # ---------------------------------------------------------------------------
-# --baseline: K1/K2 of this tree against another tree's, in turns
+# --baseline: K1/K2 and K4/K6 of this tree against another tree's, in turns
 # ---------------------------------------------------------------------------
 
 def load_port(root: str, name: str = "baseline_port"):
@@ -1386,7 +1591,7 @@ def load_port(root: str, name: str = "baseline_port"):
 
 def against_baseline(torch, rng, root: str, card: str, ipd: dict,
                      m: int = 200) -> None:
-    phase(f"A/B: K1/K2 of this tree against the port in {root}")
+    phase(f"A/B: K1/K2 and K4/K6 of this tree against the port in {root}")
     from kmerutils_tpu_torch import roofline
     from kmerutils_tpu_torch.ops import tournament as T
     from kmerutils_tpu_torch.profile_sketch import profile
@@ -1427,6 +1632,7 @@ def against_baseline(torch, rng, root: str, card: str, ipd: dict,
                           "card": card}), flush=True)
         del args, want, fns
         torch.cuda.empty_cache()
+    aggregate_against_baseline(torch, rng, card, bounds, order)
     mains = {"baseline": importlib.import_module(
         "baseline_port.cli.datasketcher").main, "this": datasketcher_main()}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1441,12 +1647,48 @@ def against_baseline(torch, rng, root: str, card: str, ipd: dict,
                       "card": card}), flush=True)
 
 
+def aggregate_against_baseline(torch, rng, card: str, bounds: Bounds,
+                               order) -> None:
+    """K4/K6 of the baseline tree (imported as baseline_port) and of this
+    tree through their public wrappers at phase 7's timed shapes: both
+    equal to the plain version, then CUDA-event ms and profiler device ms
+    in turns."""
+    from kmerutils_tpu_torch.ops import merge as M
+    from kmerutils_tpu_torch.profile_sketch import profile
+    mods = {"baseline": importlib.import_module("baseline_port.ops.merge"),
+            "this": M}
+    for sentinel, args, what in aggregate_shapes(torch, rng):
+        name = agg_fns(M, sentinel)[0].__name__
+        want = agg_fns(M, sentinel)[1](*args)
+        fns = {k: functools.partial(agg_fns(mod, sentinel)[0], *args)
+               for k, mod in mods.items()}
+        for k, fn in fns.items():
+            got = fn()
+            torch.cuda.synchronize()
+            check(got[3] == want[3] and compare(
+                torch, got[:3], want[:3],
+                args[0].numel() if sentinel else got[3]) == (0, 0),
+                f"{name} at {what}: {k} kernel != plain")
+            del got
+        res = {k: {"ms": [], "device_ms": []} for k in fns}
+        for k in order:
+            res[k]["ms"].append(cuda_ms(torch, fns[k], 10))
+        for k in order:
+            res[k]["device_ms"].append(
+                profile(fns[k], 5)["device_ms_per_call"])
+        print(json.dumps({"timing": name, "shape": what, **res,
+                          "bound_ms": bounds.bytes(aggregate_bytes(
+                              args, want[3]))[0], "card": card}), flush=True)
+        del want, fns, args
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Smoke test of the PyTorch + CUDA port on one GPU.")
     ap.add_argument("--baseline", metavar="ROOT", default=None,
-                    help="compare K1/K2 with the port in this tree instead "
-                         "of running the smoke test")
+                    help="compare K1/K2 and K4/K6 with the port in this "
+                         "tree instead of running the smoke test")
     args = ap.parse_args(argv)
     try:
         import torch

@@ -75,6 +75,8 @@ def _declare(lib) -> None:
                                       vp]
     lib.aggregate_scratch_words.restype = ll
     lib.aggregate_scratch_words.argtypes = [ll]
+    lib.aggregate_tile_entries.restype = ci
+    lib.aggregate_tile_entries.argtypes = []
     lib.launch_merge.restype = ci
     lib.launch_merge.argtypes = [ci, ci, ci, vp, vp, vp, ll, vp, vp, ll,
                                  vp, vp, vp, ll, vp]

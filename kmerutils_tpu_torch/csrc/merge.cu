@@ -28,25 +28,56 @@
 // block has yet to read): the table is folded into a second buffer.
 //
 // Aggregation (K4, K6): one entry per run of equal keys, count = the sum of
-// the run's counts saturated at 2^32 - 1 (summed in 64 bits: non-negative
-// saturating addition is associative), coordinate = the run's minimum, kept
-// when lo <= count <= hi, compacted stably.  CUDA blocks run in no order, so
-// runs that cross a tile boundary are joined through per-tile summaries
-// instead of the TPU's in-order SMEM carry:
-//   1. summary: per tile, the aggregate of its leading continuation (the
-//      elements before its first run boundary), whether it has a boundary,
-//      the number of emitted runs that close inside it, and the partial
-//      aggregate of its last run when that run reaches the tile's end;
+// the run's counts saturated at 2^32 - 1, coordinate = the run's unsigned
+// minimum, kept when lo <= count <= hi, compacted stably.  Partial sums
+// saturate at every addition: for non-negative terms saturating addition is
+// associative and equals the saturation of the exact (64-bit) sum, so one
+// 32-bit word carries them.  A tile is kAggTile = 4096 entries, 16 per
+// thread, held in registers.  Warp w takes the tile's 512 consecutive
+// entries from 512 w: it loads them striped (round r, lane l: entry 32 r +
+// l), every load issued before any is used, so each load instruction
+// reads 128 consecutive bytes per 4-byte word, and turns them through a
+// shared-memory buffer padded by one word per 128 bytes (no bank
+// conflicts) into 16 consecutive entries per lane.  An entry is a boundary
+// when it is dead, the array's first, or its key differs from the previous
+// one's (the previous key of a lane's first entry comes from
+// __shfl_up_sync, and from one load per warp at the warp's edge); a live
+// boundary heads a run.  Each lane scans its 16 entries in order (the sum
+// and minimum restart at a boundary), one warp scan of the lanes'
+// aggregates (five shuffles) and one pass over the warps' aggregates give
+// each lane the carry that its entries before their first boundary add.
+// Every entry is visited a fixed number of times, whatever the run
+// lengths: a run of 10 M equal keys costs what 10 M distinct keys cost.
+// (Scanning each round of 32 striped entries across the warp instead, five
+// shuffle steps a round, cost 10-20 shuffle instructions per entry and
+// 1.5-1.7x the time, PERF.md section 6.)  A
+// run ends on the entry whose next entry is a boundary, and that lane holds
+// the run's aggregate and key.  CUDA blocks run in no order, so runs that
+// cross a tile boundary are joined through per-tile summaries instead of
+// the TPU's in-order SMEM carry (four launches):
+//   1. summary: per tile, from keys and counts only, the aggregate of its
+//      leading continuation (the entries before its first boundary), whether
+//      it has a boundary, the number of kept runs that close inside it, and
+//      the partial aggregate of its last run when that run reaches the
+//      tile's end; coordinates are read only for the leading continuation and
+//      that last run (those of the tile's first and last 32 entries are
+//      loaded with the keys, the rest only when a run is longer);
 //   2. resolve: per tile with such an open run, walk the following tiles'
 //      leading continuations until a tile with a boundary, and decide the
 //      open run (each tile is walked by one owner at most);
 //   3. scan: exclusive scan of the per-tile emit counts (one block);
-//   4. emit: each block recomputes its runs and writes them at its offset.
+//   4. emit: each tile recomputes its runs with their coordinates; each kept
+//      run is written by the lane holding its last entry, which stages it in
+//      its warp's buffer at the warp scan of the lanes' emit counts, and the
+//      warp then stores the buffer, lane x writing entries x, x + 32, ..., at
+//      the tile's offset plus the runs of the warps before it: coalesced
+//      stores, keys from registers.  A tile's open last run takes the
+//      resolved aggregate.
 // K4 takes the live prefix [0, n) of a table; K6 a raw array whose dead
 // entries (key all ones) trail, and fills the output past n_live with all
 // ones.  Output and input are different buffers.
 //
-// Compaction (K7): K6's emit pass without aggregation.  A count kernel
+// Compaction (K7): K6 without aggregation, on striped tiles.  A count kernel
 // gives each tile's live entries (a warp sum of each thread's kIpt flags),
 // the one-block scan turns them into offsets, and the emit kernel writes
 // each tile's live entries at its offset, ranked by a warp ballot per round
@@ -59,9 +90,14 @@
 //
 // What bounds them on this card: memory traffic.  Per entry the merge reads
 // and writes the key, count and coordinate once (plus a log2(n) binary
-// search per block); aggregation reads every entry twice (summary and emit)
-// and writes each run once.  At 3.35 TB/s an 8 Mi-entry batch folded into a
-// 40 M-entry table with u32 keys and counts moves about 0.77 GB, ~0.23 ms.
+// search per block): at 3.35 TB/s an 8 Mi-entry batch folded into a 40
+// M-entry table with u32 keys and counts moves about 0.77 GB, ~0.23 ms.
+// Aggregation reads keys and counts twice (summary and emit), coordinates
+// once, and writes each kept run once: 50 M entries with u32 keys, counts
+// and coordinates and 19 M kept runs move ~1.5 GB, ~0.45 ms.  Neither pass
+// streams at the card's full rate (PERF.md gives each kernel's time): a
+// block loads its tile, then scans it with the memory idle, and the two or
+// three blocks resident on an SM (registers) overlap only in part.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,6 +185,13 @@ merge_kernel(const K* __restrict__ a_key, const uint32_t* __restrict__ a_cnt,
 // aggregation
 // ---------------------------------------------------------------------------
 
+constexpr int kWarps = kThreads / 32;
+constexpr int kAggIpt = 16;                      // entries per thread
+constexpr int kSpan = 32 * kAggIpt;              // consecutive entries a warp
+constexpr int kAggTile = kThreads * kAggIpt;     // entries per tile
+constexpr int kStage = kSpan + kSpan / 16;       // 8-byte words a warp stages
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
 // Per-tile scratch, laid out as consecutive arrays of n_tiles words (int64
 // words, used as uint64_t where noted), then offs[n_tiles + 1].
 struct AggScratch {
@@ -173,10 +216,21 @@ __host__ __device__ inline AggScratch agg_scratch(long long* base,
   return s;
 }
 
+__device__ __forceinline__ uint32_t sat32(unsigned long long sum) {
+  return sum > 0xFFFFFFFFull ? 0xFFFFFFFFu : (uint32_t)sum;
+}
+
 __device__ __forceinline__ bool in_range(unsigned long long sum, uint32_t lo,
                                          uint32_t hi) {
-  const uint32_t c = sum > 0xFFFFFFFFull ? 0xFFFFFFFFu : (uint32_t)sum;
+  const uint32_t c = sat32(sum);
   return c >= lo && c <= hi;
+}
+
+// Saturating addition: for non-negative terms it is associative and equals
+// the saturation of the exact sum, so 32 bits carry every partial run sum.
+__device__ __forceinline__ uint32_t sat_add(uint32_t a, uint32_t b) {
+  const uint32_t s = a + b;
+  return s < a ? 0xFFFFFFFFu : s;
 }
 
 __device__ __forceinline__ unsigned long long umin64(unsigned long long a,
@@ -184,151 +238,275 @@ __device__ __forceinline__ unsigned long long umin64(unsigned long long a,
   return a < b ? a : b;
 }
 
-// Flag bits of a tile element in shared memory.
-constexpr unsigned char kBoundary = 1;  // not a continuation of the previous
-constexpr unsigned char kHead = 2;      // first element of a live run
+__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v = umin64(v, __shfl_xor_sync(kFull, v, d));
+  return v;
+}
 
-// Load tile [start, start + len) of the counts and coordinates into shared
-// memory with each element's flags.  An element continues the previous
-// one's run when it is live and has the same key; with kSent an element is
-// live when its key is not all ones, otherwise every element below n is.
+// The aggregate of a stretch of entries: whether it holds a boundary (then
+// sum and mn run from its last boundary), the saturated count sum and the
+// coordinate minimum.
+struct Agg {
+  int f;
+  uint32_t sum;
+  unsigned long long mn;
+};
+
+// a followed by b.
+__device__ __forceinline__ Agg agg_then(Agg a, Agg b) {
+  if (b.f) return b;
+  return Agg{a.f, sat_add(a.sum, b.sum), umin64(a.mn, b.mn)};
+}
+
+template <bool kMin>
+__device__ __forceinline__ Agg agg_shfl_up(Agg a, int d) {
+  Agg x;
+  x.f = __shfl_up_sync(kFull, a.f, d);
+  x.sum = __shfl_up_sync(kFull, a.sum, d);
+  x.mn = kMin ? __shfl_up_sync(kFull, a.mn, d) : kNoCoord;
+  return x;
+}
+
+// Element e of a warp's staging buffer of 4- or 8-byte words, padded by
+// one word per 128 bytes, so that both the striped writes (e = 32 r +
+// lane) and the blocked reads (e = kAggIpt lane + i) hit 32 banks.
+template <typename T>
+__device__ __forceinline__ int staged(int e) {
+  return e + e / (128 / (int)sizeof(T));
+}
+
+// v[r] holds the warp's entry 32 r + lane (a coalesced load); returns with
+// v[i] = entry kAggIpt lane + i, through the warp's staging buffer.
+template <typename T>
+__device__ __forceinline__ void to_blocked(T (&v)[kAggIpt], T* buf,
+                                           int lane) {
+#pragma unroll
+  for (int r = 0; r < kAggIpt; ++r) buf[staged<T>(32 * r + lane)] = v[r];
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < kAggIpt; ++i) v[i] = buf[staged<T>(kAggIpt * lane + i)];
+  __syncwarp();
+}
+
+// Shared memory of one tile: each warp's staging buffer and aggregates.
+struct AggShared {
+  unsigned long long stage[kWarps][kStage];
+  Agg warp_agg[kWarps];
+  int warp_first[kWarps];  // each warp's first boundary (len when none)
+  int warp_last[kWarps];   // and its last (-1 when none)
+  int warp_emit[kWarps];   // runs each warp emits
+  int end_live;            // the tile's last entry is live
+};
+
+// A tile's runs, in registers.  Warp w holds the tile's entries [kSpan w,
+// kSpan (w + 1)), lane l the kAggIpt consecutive ones from kSpan w +
+// kAggIpt l (j = kSpan w + kAggIpt l + i for i < kAggIpt).
+template <typename K>
+struct TileRuns {
+  K k[kAggIpt];
+  uint32_t s[kAggIpt];             // the live entry's segment sum up to it
+  unsigned long long m[kAggIpt];   // and coordinate minimum (with kMin)
+  unsigned live;                   // bit i: entry i is live
+  unsigned ends;                   // bit i: the next entry is a boundary or
+                                   // lies past the tile
+  unsigned head;                   // bit i: its segment is headed in the tile
+  int first_b, last_b;             // the tile's first (len when none) and
+                                   // last (-1) boundaries
+};
+
+// Loads tile [start, start + len) and leaves in s[i] (with kMin also m[i])
+// the aggregate of live entry i's segment from its start, or from the
+// tile's start for the leading continuation, up to the entry.  An entry
+// starts a segment (is a boundary) when it is dead, the array's first, or
+// its key differs from the previous entry's; a live boundary heads a run.
+// Each lane scans its entries in order, one warp scan of the lanes'
+// aggregates and one pass over the warps' give the carries.  One barrier.
+template <typename K, bool kSent, bool kMin>
+__device__ __forceinline__ void tile_runs(const K* __restrict__ key,
+                                          const uint32_t* __restrict__ cnt,
+                                          const uint64_t* __restrict__ crd,
+                                          long long start, int len,
+                                          AggShared& sm, TileRuns<K>& R) {
+  const int tid = (int)threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int w0 = warp * kSpan;             // the warp's first entry
+  const long long g0 = start + w0;
+  const int wlen = len - w0 < 0 ? 0 : (len - w0 < kSpan ? len - w0 : kSpan);
+  // every load issued before any is used: striped, coalesced
+#pragma unroll
+  for (int r = 0; r < kAggIpt; ++r) {
+    const int e = 32 * r + lane;
+    R.k[r] = e < wlen ? key[g0 + e] : K(0);
+    R.s[r] = e < wlen ? cnt[g0 + e] : 0u;
+    if (kMin) R.m[r] = e < wlen ? crd[g0 + e] : kNoCoord;
+  }
+  // the entries just before and after the warp's span
+  const K before = w0 < len && g0 > 0 ? key[g0 - 1] : K(0);
+  const K after = w0 + kSpan < len ? key[g0 + kSpan] : K(0);
+  to_blocked<K>(R.k, (K*)sm.stage[warp], lane);
+  to_blocked<uint32_t>(R.s, (uint32_t*)sm.stage[warp], lane);
+  if (kMin) to_blocked<unsigned long long>(R.m, sm.stage[warp], lane);
+  // lane l's neighbours: the last entry of lane l - 1, the first of l + 1
+  K prev = (K)__shfl_up_sync(kFull, (unsigned long long)R.k[kAggIpt - 1], 1);
+  K next = (K)__shfl_down_sync(kFull, (unsigned long long)R.k[0], 1);
+  if (lane == 0) prev = before;
+  if (lane == 31) next = after;
+  const int j0 = w0 + kAggIpt * lane;
+  Agg a{0, 0u, kNoCoord};
+  unsigned bnds = 0u;
+  R.live = R.ends = 0u;
+#pragma unroll
+  for (int i = 0; i < kAggIpt; ++i) {
+    const int j = j0 + i;
+    const K kp = i == 0 ? prev : R.k[i - 1];
+    const K kn = i + 1 == kAggIpt ? next : R.k[i + 1];
+    const bool live = j < len && (!kSent || R.k[i] != ~K(0));
+    const bool bnd = j < len && (!live || start + j == 0 || R.k[i] != kp);
+    const uint32_t v = live ? R.s[i] : 0u;
+    const unsigned long long mv = kMin && live ? R.m[i] : kNoCoord;
+    if (bnd) {
+      a = Agg{1, v, mv};
+    } else {
+      a.sum = sat_add(a.sum, v);
+      if (kMin) a.mn = umin64(a.mn, mv);
+    }
+    R.s[i] = a.sum;
+    if (kMin) R.m[i] = a.mn;
+    bnds |= bnd ? 1u << i : 0u;
+    R.live |= live ? 1u << i : 0u;
+    R.ends |= j + 1 >= len || kn != R.k[i] ? 1u << i : 0u;
+    if (j == len - 1) sm.end_live = live ? 1 : 0;
+  }
+  // exclusive segmented scan of the lanes' aggregates
+  Agg inc = a;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Agg x = agg_shfl_up<kMin>(inc, d);
+    if (lane >= d) inc = agg_then(x, inc);
+  }
+  Agg excl = agg_shfl_up<kMin>(inc, 1);
+  if (lane == 0) excl = Agg{0, 0u, kNoCoord};
+  const int first =
+      __reduce_min_sync(kFull, bnds ? j0 + __ffs(bnds) - 1 : len);
+  const int last = __reduce_max_sync(kFull, bnds ? j0 + 31 - __clz(bnds) : -1);
+  if (lane == 31) sm.warp_agg[warp] = inc;
+  if (lane == 0) {
+    sm.warp_first[warp] = first;
+    sm.warp_last[warp] = last;
+  }
+  __syncthreads();
+  Agg carry{0, 0u, kNoCoord};
+  R.first_b = len;
+  R.last_b = -1;
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) carry = agg_then(carry, sm.warp_agg[w]);
+    R.first_b = R.first_b < sm.warp_first[w] ? R.first_b : sm.warp_first[w];
+    R.last_b = R.last_b > sm.warp_last[w] ? R.last_b : sm.warp_last[w];
+  }
+  carry = agg_then(carry, excl);
+  // the entries before the lane's first boundary take the carry
+  const unsigned lead = bnds ? (bnds & (0u - bnds)) - 1u : ~0u;
+  R.head = ~lead;
+#pragma unroll
+  for (int i = 0; i < kAggIpt; ++i) {
+    if ((lead >> i) & 1u) {
+      R.s[i] = sat_add(carry.sum, R.s[i]);
+      if (kMin) R.m[i] = umin64(carry.mn, R.m[i]);
+      R.head |= carry.f ? 1u << i : 0u;
+    }
+  }
+}
+
 template <typename K, bool kCrd, bool kSent>
-__device__ void load_tile(const K* key, const uint32_t* cnt,
-                          const uint64_t* crd, long long start, int len,
-                          uint32_t* s_cnt, unsigned long long* s_crd,
-                          unsigned char* s_flag) {
-  for (int j = (int)threadIdx.x; j < len; j += kThreads) {
-    const long long i = start + j;
-    const K k = key[i];
-    const bool live = !kSent || k != ~K(0);
-    const bool bnd = !live || i == 0 || k != key[i - 1];
-    s_flag[j] = (unsigned char)((bnd ? kBoundary : 0) |
-                                (bnd && live ? kHead : 0));
-    s_cnt[j] = cnt[i];
-    if (kCrd) s_crd[j] = crd[i];
-  }
-}
-
-// Aggregate of the run whose head is at j, within the tile; returns whether
-// the run closes inside the tile (false: it reaches the tile's end).
-template <bool kCrd>
-__device__ __forceinline__ bool walk_run(int j, int len, const uint32_t* s_cnt,
-                                         const unsigned long long* s_crd,
-                                         const unsigned char* s_flag,
-                                         unsigned long long* sum,
-                                         unsigned long long* mn) {
-  unsigned long long s = s_cnt[j];
-  unsigned long long m = kCrd ? s_crd[j] : kNoCoord;
-  int e = j + 1;
-  while (e < len && !(s_flag[e] & kBoundary)) {
-    s += s_cnt[e];
-    if (kCrd) m = umin64(m, s_crd[e]);
-    ++e;
-  }
-  *sum = s;
-  *mn = m;
-  return e < len;
-}
-
-// Block-wide sum / min / exclusive scan through shared memory (every thread
-// of the block calls them).
-__device__ unsigned long long block_sum(unsigned long long v,
-                                        unsigned long long* red) {
-  const int tid = (int)threadIdx.x;
-  __syncthreads();
-  red[tid] = v;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
-    __syncthreads();
-  }
-  return red[0];
-}
-
-__device__ unsigned long long block_min(unsigned long long v,
-                                        unsigned long long* red) {
-  const int tid = (int)threadIdx.x;
-  __syncthreads();
-  red[tid] = v;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] = umin64(red[tid], red[tid + s]);
-    __syncthreads();
-  }
-  return red[0];
-}
-
-__device__ unsigned long long block_exclusive_scan(unsigned long long v,
-                                                   unsigned long long* red) {
-  const int tid = (int)threadIdx.x;
-  __syncthreads();
-  red[tid] = v;
-  __syncthreads();
-  for (int off = 1; off < kThreads; off <<= 1) {
-    const unsigned long long x = tid >= off ? red[tid - off] : 0ull;
-    __syncthreads();
-    red[tid] += x;
-    __syncthreads();
-  }
-  return red[tid] - v;
-}
-
-template <typename K, bool kCrd, bool kSent>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 agg_summary_kernel(const K* __restrict__ key, const uint32_t* __restrict__ cnt,
                    const uint64_t* __restrict__ crd, long long n, uint32_t lo,
                    uint32_t hi, long long* scratch, long long n_tiles) {
-  __shared__ uint32_t s_cnt[kTile];
-  __shared__ unsigned long long s_crd[kCrd ? kTile : 1];
-  __shared__ unsigned char s_flag[kTile];
-  __shared__ unsigned long long red[kThreads];
-  __shared__ int s_open;
+  __shared__ AggShared sm;
+  __shared__ int s_closed[kWarps];
+  __shared__ unsigned long long s_min[2][kWarps];
+  __shared__ uint32_t s_pre, s_tail;
   const AggScratch S = agg_scratch(scratch, n_tiles);
   const int tid = (int)threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const long long t = blockIdx.x;
-  const long long start = t * kTile;
-  const int len = (int)(n - start < kTile ? n - start : kTile);
-  if (tid == 0) s_open = 0;
-  load_tile<K, kCrd, kSent>(key, cnt, crd, start, len, s_cnt, s_crd, s_flag);
-  __syncthreads();
-  const int j0 = tid * kIpt;
-  const int j1 = j0 + kIpt < len ? j0 + kIpt : len;
-  // first boundary of the tile (len when there is none)
-  unsigned long long fb = (unsigned long long)len;
-  for (int j = j0; j < j1; ++j) {
-    if (s_flag[j] & kBoundary) {
-      fb = (unsigned long long)j;
-      break;
-    }
-  }
-  const int first_b = (int)block_min(fb, red);
-  // the leading continuation [0, first_b): part of a run from earlier tiles
-  unsigned long long psum = 0, pmin = kNoCoord;
-  for (int j = j0; j < j1 && j < first_b; ++j) {
-    psum += s_cnt[j];
-    if (kCrd) pmin = umin64(pmin, s_crd[j]);
-  }
-  psum = block_sum(psum, red);
-  if (kCrd) pmin = block_min(pmin, red);
-  // runs headed in this thread's elements
-  unsigned long long closed = 0;
-  for (int j = j0; j < j1; ++j) {
-    if (!(s_flag[j] & kHead)) continue;
-    unsigned long long sum, mn;
-    if (walk_run<kCrd>(j, len, s_cnt, s_crd, s_flag, &sum, &mn)) {
-      closed += in_range(sum, lo, hi) ? 1 : 0;
-    } else {  // the tile's last run reaches its end: one thread at most
-      S.tail_sum[t] = sum;
-      S.tail_min[t] = mn;
-      s_open = 1;
-    }
-  }
-  closed = block_sum(closed, red);  // its barriers also publish s_open
+  const long long start = t * kAggTile;
+  const int len = (int)(n - start < kAggTile ? n - start : kAggTile);
   if (tid == 0) {
-    S.pre_sum[t] = psum;
+    s_pre = 0u;
+    s_tail = 0u;
+  }
+  // coordinates of the tile's first and last 32 entries, the common
+  // leading continuation and open run, loaded ahead
+  unsigned long long c_first = kNoCoord, c_last = kNoCoord;
+  if (kCrd && warp == 0 && lane < len) c_first = crd[start + lane];
+  if (kCrd && warp == kWarps - 1 && len - 32 + lane >= 0) {
+    c_last = crd[start + len - 32 + lane];
+  }
+  TileRuns<K> R;
+  tile_runs<K, kSent, false>(key, cnt, crd, start, len, sm, R);
+  const int j0 = warp * kSpan + kAggIpt * lane;
+  int closed = 0;
+#pragma unroll
+  for (int i = 0; i < kAggIpt; ++i) {
+    if (!((R.live & R.ends) >> i & 1u)) continue;
+    const uint32_t s = R.s[i];
+    if (!((R.head >> i) & 1u)) {
+      s_pre = s;  // the end of the leading continuation
+    } else if (j0 + i + 1 < len) {
+      closed += s >= lo && s <= hi ? 1 : 0;
+    } else {
+      s_tail = s;  // the tile's last run reaches its end
+    }
+  }
+  const bool open = R.last_b >= 0 && sm.end_live;
+  if (kCrd) {  // only the leading continuation's and the open run's
+    unsigned long long pmin = kNoCoord, tmin = kNoCoord;
+    if (R.first_b <= 32 && (!open || R.last_b >= len - 32)) {
+      if (warp == 0 && lane < R.first_b) pmin = c_first;
+      if (open && warp == kWarps - 1 && len - 32 + lane >= R.last_b) {
+        tmin = c_last;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kAggIpt; ++r) {
+        const int j = r * kThreads + tid;
+        if (j < R.first_b) {
+          pmin = umin64(pmin, crd[start + j]);
+        } else if (open && j >= R.last_b && j < len) {
+          tmin = umin64(tmin, crd[start + j]);
+        }
+      }
+    }
+    pmin = warp_min(pmin);
+    tmin = warp_min(tmin);
+    if (lane == 0) {
+      s_min[0][warp] = pmin;
+      s_min[1][warp] = tmin;
+    }
+  }
+  closed = __reduce_add_sync(kFull, closed);
+  if (lane == 0) s_closed[warp] = closed;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+    unsigned long long pmin = kNoCoord, tmin = kNoCoord;
+    for (int w = 0; w < kWarps; ++w) {
+      total += s_closed[w];
+      if (kCrd) {
+        pmin = umin64(pmin, s_min[0][w]);
+        tmin = umin64(tmin, s_min[1][w]);
+      }
+    }
+    S.pre_sum[t] = s_pre;
     S.pre_min[t] = pmin;
-    S.flags[t] = (first_b < len ? 1 : 0) | (s_open ? 2 : 0);
-    S.offs[t] = (long long)closed;
+    S.tail_sum[t] = s_tail;
+    S.tail_min[t] = tmin;
+    S.flags[t] = (R.first_b < len ? 1 : 0) | (open ? 2 : 0);
+    S.offs[t] = total;
   }
 }
 
@@ -378,54 +556,86 @@ scan_kernel(long long* offs, long long n) {
   if (tid == kScanThreads - 1) offs[n] = s[tid];
 }
 
+// Writes array v's emitted entries (bits of emit) of each lane at
+// out[base + pos ...) in order: staged in the warp's buffer at the lane's
+// offset pos, then stored by the whole warp, lane x writing entries x, x +
+// 32, ..., so the stores are coalesced.
+template <typename T>
+__device__ __forceinline__ void emit_array(const T (&v)[kAggIpt],
+                                           unsigned emit, int pos, int total,
+                                           T* buf, T* __restrict__ out,
+                                           long long base, int lane) {
+#pragma unroll
+  for (int i = 0; i < kAggIpt; ++i) {
+    if ((emit >> i) & 1u) buf[staged<T>(pos++)] = v[i];
+  }
+  __syncwarp();
+  for (int x = lane; x < total; x += 32) out[base + x] = buf[staged<T>(x)];
+  __syncwarp();
+}
+
+// Each tile recomputes its runs with their coordinate minima; each kept run
+// is emitted by the lane holding its last entry, at the tile's offset + the
+// runs of the warps and lanes before it.
 template <typename K, bool kCrd, bool kSent>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kCrd ? 2 : 3)
 agg_emit_kernel(const K* __restrict__ key, const uint32_t* __restrict__ cnt,
                 const uint64_t* __restrict__ crd, long long n, uint32_t lo,
                 uint32_t hi, long long* scratch, long long n_tiles,
                 K* __restrict__ o_key, uint32_t* __restrict__ o_cnt,
                 uint64_t* __restrict__ o_crd) {
-  __shared__ uint32_t s_cnt[kTile];
-  __shared__ unsigned long long s_crd[kCrd ? kTile : 1];
-  __shared__ unsigned char s_flag[kTile];
-  __shared__ unsigned long long red[kThreads];
+  __shared__ AggShared sm;
   const AggScratch S = agg_scratch(scratch, n_tiles);
   const int tid = (int)threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const long long t = blockIdx.x;
-  const long long start = t * kTile;
-  const int len = (int)(n - start < kTile ? n - start : kTile);
-  load_tile<K, kCrd, kSent>(key, cnt, crd, start, len, s_cnt, s_crd, s_flag);
-  __syncthreads();
-  const int j0 = tid * kIpt;
-  const int j1 = j0 + kIpt < len ? j0 + kIpt : len;
-  // pass 1: how many runs this thread emits; pass 2: write them in order
-  unsigned long long mine = 0;
-  for (int pass = 0; pass < 2; ++pass) {
-    long long o = 0;
-    if (pass == 1) o = S.offs[t] + (long long)block_exclusive_scan(mine, red);
-    for (int j = j0; j < j1; ++j) {
-      if (!(s_flag[j] & kHead)) continue;
-      unsigned long long sum, mn;
-      if (!walk_run<kCrd>(j, len, s_cnt, s_crd, s_flag, &sum, &mn)) {
-        sum = S.tail_sum[t];  // resolved across the following tiles
-        mn = S.tail_min[t];
-      }
-      if (!in_range(sum, lo, hi)) continue;
-      if (pass == 0) {
-        ++mine;
-        continue;
-      }
-      o_key[o] = key[start + j];
-      o_cnt[o] = sum > 0xFFFFFFFFull ? 0xFFFFFFFFu : (uint32_t)sum;
-      if (kCrd) o_crd[o] = mn;
-      ++o;
+  const long long start = t * kAggTile;
+  const int len = (int)(n - start < kAggTile ? n - start : kAggTile);
+  const long long tile_off = S.offs[t];
+  TileRuns<K> R;
+  tile_runs<K, kSent, kCrd>(key, cnt, crd, start, len, sm, R);
+  const int j0 = warp * kSpan + kAggIpt * lane;
+  unsigned emit = 0u;
+#pragma unroll
+  for (int i = 0; i < kAggIpt; ++i) {
+    if (!((R.live & R.ends & R.head) >> i & 1u)) continue;
+    bool e;
+    if (j0 + i + 1 < len) {
+      e = R.s[i] >= lo && R.s[i] <= hi;
+    } else {  // the open last run, resolved across the following tiles
+      const unsigned long long sum = S.tail_sum[t];
+      e = in_range(sum, lo, hi);
+      R.s[i] = sat32(sum);
+      if (kCrd) R.m[i] = S.tail_min[t];
     }
+    emit |= e ? 1u << i : 0u;
+  }
+  const int mine = __popc(emit);
+  int inc = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int x = __shfl_up_sync(kFull, inc, d);
+    if (lane >= d) inc += x;
+  }
+  if (lane == 31) sm.warp_emit[warp] = inc;
+  __syncthreads();
+  long long base = tile_off;
+  for (int w = 0; w < warp; ++w) base += sm.warp_emit[w];
+  const int total = sm.warp_emit[warp];
+  const int pos = inc - mine;
+  emit_array<K>(R.k, emit, pos, total, (K*)sm.stage[warp], o_key, base, lane);
+  emit_array<uint32_t>(R.s, emit, pos, total, (uint32_t*)sm.stage[warp],
+                       o_cnt, base, lane);
+  if (kCrd) {
+    emit_array<unsigned long long>(R.m, emit, pos, total, sm.stage[warp],
+                                   (unsigned long long*)o_crd, base, lane);
   }
   if (kSent) {  // all ones past the last emitted entry
-    const long long total = S.offs[n_tiles];
+    const long long all = S.offs[n_tiles];
     for (int j = tid; j < len; j += kThreads) {
       const long long i = start + j;
-      if (i < total) continue;
+      if (i < all) continue;
       o_key[i] = ~K(0);
       o_cnt[i] = 0xFFFFFFFFu;
       if (kCrd) o_crd[i] = ~0ull;
@@ -438,7 +648,6 @@ agg_emit_kernel(const K* __restrict__ key, const uint32_t* __restrict__ cnt,
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxArrays = 5;
-constexpr int kWarps = kThreads / 32;
 
 struct CompactArrays {
   const uint32_t* in[kMaxArrays];
@@ -571,7 +780,7 @@ int aggregate_typed(const void* key, const void* cnt, const void* crd,
                     long long n, uint32_t lo, uint32_t hi, void* o_key,
                     void* o_cnt, void* o_crd, long long* scratch,
                     cudaStream_t st) {
-  const long long n_tiles = (n + kTile - 1) / kTile;
+  const long long n_tiles = (n + kAggTile - 1) / kAggTile;
   if (n_tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
   agg_summary_kernel<K, kCrd, kSent><<<(unsigned)n_tiles, kThreads, 0, st>>>(
       (const K*)key, (const uint32_t*)cnt, (const uint64_t*)crd, n, lo, hi,
@@ -617,9 +826,12 @@ int aggregate_key(int has_crd, int sentinel, const void* key, const void* cnt,
 
 // int64 words of scratch that launch_aggregate needs for n entries.
 extern "C" long long aggregate_scratch_words(long long n) {
-  const long long n_tiles = (n + kTile - 1) / kTile;
+  const long long n_tiles = (n + kAggTile - 1) / kAggTile;
   return 6 * n_tiles + 1;
 }
+
+// Entries per tile of K4/K6 (ops/merge.py's AGG_TILE).
+extern "C" int aggregate_tile_entries() { return kAggTile; }
 
 // K3 (has_cnt = 1) and K5 (has_cnt = 0): stable merge of a[0, na) and
 // b[0, nb), A first on ties; writes the first n_out <= na + nb outputs.

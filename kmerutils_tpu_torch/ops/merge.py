@@ -40,6 +40,10 @@ import torch
 from .. import _build
 from .bitops import M32, flip64
 
+# entries per tile of the K4/K6 kernels (kAggTile of csrc/merge.cu, which
+# reports it as aggregate_tile_entries); runs are joined across tiles
+AGG_TILE = 4096
+
 # kernel launches by the wrappers (not by the plain versions)
 launches_merge = 0       # K5
 launches_fold = 0        # K3

@@ -12,7 +12,9 @@ Tolerance: exact.  K5 (stable, A first) and K4/K6 (one entry per key) are
 compared entry by entry; K3 after sorting entries by (key, payload), since
 the order within a run of equal keys is free.  The CUDA kernels themselves
 are compared with these plain versions, exactly, on the card by
-chip_smoke.py.
+chip_smoke.py, which also holds K4/K6 to them at the run layouts around the
+kernels' tile (chip_smoke.agg_layouts); here the plain versions meet a
+numpy oracle at the same layouts.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
 from kmerutils_tpu.ops import merge_pallas as mp
 from kmerutils_tpu_torch.ops import merge as M
 
@@ -198,16 +201,29 @@ def agg_inputs(rng, n, wide, with_crd):
     return keys, cnt, crd
 
 
-@pytest.mark.parametrize("n,wide,with_crd,lo,hi", [
-    (5000, True, True, 2, 5),
-    (3000, False, False, 1, None),
-    (4096, False, True, 1, None),
-    (0, False, False, 1, None),
-])
-def test_aggregate_fold_matches_jax(n, wide, with_crd, lo, hi):
+def with_long_run(keys, cnt, a: int, b: int):
+    """Entries [a, b) made one run whose first and last counts are 2^31:
+    its sum saturates, though no tile of 1024 entries within it does."""
+    keys[a:b] = keys[a]
+    cnt[a + 1: b - 1] = 3
+    cnt[a] = cnt[b - 1] = 0x80000000
+
+
+@pytest.mark.parametrize("n,wide,with_crd,lo,hi,long_run", [
+    (5000, True, True, 2, 5, None),
+    (3000, False, False, 1, None, None),
+    (4096, False, True, 1, None, None),
+    (0, False, False, 1, None, None),
+    (5000, False, True, 1, None, (900, 3400)),   # > 2 JAX tiles of 1024
+], ids=["5000-True-True-2-5", "3000-False-False-1-None",
+        "4096-False-True-1-None", "0-False-False-1-None",
+        "5000-False-True-1-None-long_run"])
+def test_aggregate_fold_matches_jax(n, wide, with_crd, lo, hi, long_run):
     rng = np.random.default_rng(n + 11)
     ncmp = 2 if wide else 1
     keys, cnt, crd = agg_inputs(rng, n, wide, with_crd)
+    if long_run:
+        with_long_run(keys, cnt, *long_run)
     words = key_words(keys, wide) + [cnt] + crd
     capacity, window = 6000, 4096
     outs, n_live = mp.aggregate_fold_i32(
@@ -234,6 +250,10 @@ def test_aggregate_fold_matches_jax(n, wide, with_crd, lo, hi):
         np.testing.assert_array_equal(g, w)
     if n and hi is None:
         assert (c[:got_n].numpy().view(np.uint32) == 0xFFFFFFFF).any()
+    if long_run:    # the long run is one entry, its sum saturated
+        at = np.flatnonzero(from_port(key, None, None, got_n, wide)[-1]
+                            == keys[long_run[0]].astype(np.uint32))
+        assert len(at) == 1 and c[at[0]].item() == -1
 
 
 @pytest.mark.parametrize("m,n_dead,wide,with_crd,lo,hi", [
@@ -261,6 +281,78 @@ def test_aggregate_compact_matches_jax(m, n_dead, wide, with_crd, lo, hi):
     assert got_n == int(n_live)
     for g, w in zip(from_port(key, c, r, m, wide), want):
         np.testing.assert_array_equal(g, w)        # tail all ones included
+
+
+def agg_oracle(keys, cnt, crd, lo: int, hi):
+    """numpy K4 over live entries: per run of equal keys the key, the count
+    sum saturated at 2^32 - 1, the coordinate minimum (unsigned); runs with
+    lo <= count <= hi (lo <= 1 keeps all)."""
+    if len(keys) == 0:
+        return keys, cnt.view(np.int32), crd
+    head = np.ones(len(keys), bool)
+    head[1:] = keys[1:] != keys[:-1]
+    at = np.flatnonzero(head)
+    sums = np.add.reduceat(cnt.astype(np.uint64), at)
+    sums = np.minimum(sums, np.uint64(0xFFFFFFFF))
+    hi = 0xFFFFFFFF if hi is None else hi
+    keep = (sums >= (lo if lo > 1 else 0)) & (sums <= hi)
+    r_crd = None
+    if crd is not None:
+        r_crd = np.minimum.reduceat(crd.view(np.uint64), at)[keep].view(
+            np.int64)
+    return keys[at][keep], sums[keep].astype(np.uint32).view(np.int32), r_crd
+
+
+AGG_LAYOUTS = [case[0] for case in chip_smoke.agg_layouts(
+    np.random.default_rng(0), M.AGG_TILE)]
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("layout", AGG_LAYOUTS)
+def test_aggregate_refs_match_numpy_oracle(layout, wide):
+    """aggregate_fold_ref (over a table with garbage behind its live
+    prefix) and aggregate_compact_ref (dead tail, all-ones fill) against
+    agg_oracle, with and without coordinates, at the layouts on which
+    chip_smoke.py holds the kernels to them: runs spanning
+    tiles, ending on and one past tile boundaries, all distinct, sums
+    saturating only across a tile boundary, lo/hi dropping runs that span
+    tiles, and n = 0, 1, tile - 1, tile, tile + 1."""
+    rng = np.random.default_rng(AGG_LAYOUTS.index(layout) * 2 + wide)
+    _, lens, cnt, lo, hi = next(
+        c for c in chip_smoke.agg_layouts(rng, M.AGG_TILE) if c[0] == layout)
+    n = int(lens.sum())
+    keys = chip_smoke.layout_keys(rng, lens, wide)
+    crd = chip_smoke.coords(rng, n)
+    for with_crd in (False, True):
+        r = crd if with_crd else None
+        want = agg_oracle(keys, cnt, r, lo, hi)
+        m = len(want[0])
+        pad = 37
+        t_key = np.concatenate([keys, chip_smoke.layout_keys(
+            rng, np.ones(pad, np.int64), wide)])
+        t_cnt = np.concatenate([cnt.view(np.int32),
+                                rng.integers(0, 9, pad).astype(np.int32)])
+        t_crd = np.concatenate([crd, chip_smoke.coords(rng, pad)])
+        got = M.aggregate_fold_ref(
+            torch.from_numpy(t_key), torch.from_numpy(t_cnt),
+            torch.from_numpy(t_crd) if with_crd else None, n, lo, hi)
+        assert got[3] == m
+        for g, w in zip(got[:3], want):
+            if w is not None:
+                np.testing.assert_array_equal(g[:m].numpy(), w)
+        dead = n // 3 + 7
+        d_key = np.concatenate([keys, np.full(dead, -1, keys.dtype)])
+        d_cnt = np.concatenate([cnt.view(np.int32), np.full(dead, -1,
+                                                            np.int32)])
+        d_crd = np.concatenate([crd, np.full(dead, -1, np.int64)])
+        got = M.aggregate_compact_ref(
+            torch.from_numpy(d_key), torch.from_numpy(d_cnt),
+            torch.from_numpy(d_crd) if with_crd else None, lo, hi)
+        assert got[3] == m
+        for g, w in zip(got[:3], want):
+            if w is not None:
+                np.testing.assert_array_equal(g[:m].numpy(), w)
+                assert (g[m:] == -1).all()
 
 
 def test_wrappers_validate_inputs():
