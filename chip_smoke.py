@@ -53,13 +53,22 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    6 % substitutions); every dump is compared in full with a numpy oracle
    computed from the generated reads; the launch counters must show K3, K4
    and K5 ran; the --count run is repeated three times for its wall time;
-9. K7 (compact_live) vs its plain version on the card, exact, at 64 Mi
-   entries with 1 and 5 arrays and 10 / 50 / 90 % live, each timed; then
-   the exact-counting path (count/exact.py: ``count_batch``,
-   ``count_batch_detailed``, ``unique_kmer_coords``, densified on the card
-   through K7) on the bench batch at k=21 and on reads holding the k=32
-   keys T^16A^16 and A^16T^16, against a numpy oracle; K7's launch counter
-   must show it ran; K7 is timed again at that path's shape;
+9. K7 (compact_live) vs its plain version on the card, exact, with n_live
+   equal: at every layout of ``live_layouts`` around its tile (n = 1 live
+   and dead, tile - 1, tile, tile + 1, all live, all dead, 40 all-dead
+   tiles then one live entry, live only at each tile's first or last slot
+   or only in the last tile, alternating, 10 / 50 / 90 % over 3.5 tiles)
+   with 1 and 5 arrays, 2-4 arrays at one layout; at 64 Mi entries with 1
+   and 5 arrays and 10 / 50 / 90 % live, each timed (CUDA events over
+   wrapper calls, and the profiler's device time and kernels per call:
+   one K7 kernel and one memset); then the exact-counting path
+   (count/exact.py: ``count_batch``, ``count_batch_detailed``,
+   ``unique_kmer_coords``, densified on the card through K7) on the bench
+   batch at k=21 and on reads holding the k=32 keys T^16A^16 and
+   A^16T^16, against a numpy oracle; K7's launch counter must show it ran;
+   K7 is timed again at that path's shape; then 100 calls at that shape
+   and 100 at the all-dead chain, each output equal to the plain
+   version's;
 10. the rest of ``datasketcher`` through the CLI on ``cuda`` over phase 5's
    ONT-like file: ``-b 512`` (the block dump read back, live blocks exactly
    those with a valid k-mer, 64 sampled reads recomputed through the plain
@@ -80,7 +89,8 @@ this tree's through both packages' public wrappers, in turns (baseline,
 this, this, baseline): at phase 6's shapes and sketch_collection's row,
 CUDA-event ms, host ms to enqueue one call and device ms (torch.profiler),
 every result equal to the plain version; K4/K6 at phase 7's timed shapes
-the same way (event ms and device ms); then ``datasketcher -b 512 -k 8``
+and K7 at phase 9's seven timed shapes the same way (event ms and device
+ms); then ``datasketcher -b 512 -k 8``
 of each package over phase 5's ONT-like file (wall ms, device ms, the
 tournament kernels' device ms).  It prints one JSON line per result and
 the card line, and no ``ok`` line.
@@ -914,10 +924,14 @@ def kernel_split(prof: dict) -> dict:
     keyed by the kernel's name without its namespace and arguments."""
     out = {}
     for name, ms in prof["top_kernels_ms_per_call"]:
-        short = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
-                       name).strip()
-        out[short] = out.get(short, 0.0) + ms
+        out[short_name(name)] = out.get(short_name(name), 0.0) + ms
     return out
+
+
+def short_name(kernel: str) -> str:
+    """A kernel's name without its namespace and arguments."""
+    return re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                  kernel).strip()
 
 
 def agg_fns(M, sentinel: bool):
@@ -1204,24 +1218,55 @@ PALINDROMES = ["GGG" + "T" * 16 + "A" * 16 + "CCCCC",
                "C" + "A" * 16 + "T" * 16 + "GG"]
 
 
-def live_arrays(torch, gen, n: int, narr: int, frac: float, dev):
-    """narr int32 arrays of n entries made on the card from ``gen``: a
-    share ``frac`` of live entries (first word not all ones, values over
-    the whole u32 range), the rest dead (first word -1)."""
-    first = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), dtype=torch.int32,
-                          device=dev, generator=gen)
-    first = torch.where(first == -1, 0, first)
-    dead = torch.rand(n, device=dev, generator=gen) >= frac
-    first = torch.where(dead, -1, first)
-    rest = [torch.randint(-(1 << 31), (1 << 31) - 1, (n,), dtype=torch.int32,
-                          device=dev, generator=gen)
+def live_layouts(rng, tile: int):
+    """Adversarial liveness of K7 around its tile of ``tile`` entries:
+    (name, bool mask, True where the entry is live)."""
+    T = tile
+
+    def at(n, live_at):
+        m = np.zeros(n, bool)
+        m[live_at] = True
+        return m
+
+    cases = [("n=1 live", np.ones(1, bool)), ("n=1 dead", np.zeros(1, bool))]
+    for n in (T - 1, T, T + 1):
+        cases.append((f"n={n}, half live", rng.random(n) < 0.5))
+    n = 3 * T + T // 2
+    cases.append(("all live", np.ones(n, bool)))
+    cases.append(("all dead", np.zeros(n, bool)))
+    # a look-back through 40 tiles whose aggregates are all 0
+    cases.append(("40 all-dead tiles, then one live entry",
+                  at(40 * T + 1, [40 * T])))
+    n = 5 * T + T // 3
+    cases.append(("live only at each tile's first slot",
+                  at(n, np.arange(0, n, T))))
+    cases.append(("live only at each tile's last slot",
+                  at(n, np.append(np.arange(T - 1, n, T), n - 1))))
+    n = 4 * T + 100
+    cases.append(("live only in the last tile",
+                  at(n, 4 * T + np.flatnonzero(rng.random(100) < 0.5))))
+    cases.append(("alternating", np.arange(3 * T + 17) % 2 == 0))
+    for frac in (0.1, 0.5, 0.9):
+        cases.append((f"{frac:.0%} live over 3.5 tiles",
+                      rng.random(3 * T + T // 2) < frac))
+    return cases
+
+
+def live_words(rng, live, narr: int):
+    """narr int32 numpy arrays for the liveness mask ``live``: the first
+    word random but never all ones where live, all ones where dead; the
+    others random over the whole u32 range."""
+    n = live.size
+    first = rng.integers(0, 0xFFFFFFFF, size=n, dtype=np.uint64)
+    first[~live] = 0xFFFFFFFF
+    rest = [rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
             for _ in range(narr - 1)]
-    return (first, *rest)
+    return [w.astype(np.uint32).view(np.int32) for w in (first, *rest)]
 
 
 def k7_check(torch, arrs, what: str):
     """K7 vs its plain version on ``arrs``: (mismatching entries, max |diff|
-    of the u32 words); fails on any difference."""
+    of the u32 words); fails on any difference or another n_live."""
     from kmerutils_tpu_torch.ops import merge as M
     got, n = M.compact_live(arrs)
     want, n_ref = M.compact_live_ref(arrs)
@@ -1230,6 +1275,95 @@ def k7_check(torch, arrs, what: str):
     bad, err = compare(torch, got, want, arrs[0].numel())
     check(bad == 0, f"K7 != plain ({what}): {bad} mismatches")
     return bad, err
+
+
+def k7_layout_checks(torch, rng, dev="cuda"):
+    """K7 against its plain version at every layout of live_layouts, with 1
+    and 5 arrays, and with 2-4 arrays at the all-dead chain; one JSON line
+    per layout."""
+    from kmerutils_tpu_torch.ops import merge as M
+    for name, live in live_layouts(rng, M.LIVE_TILE):
+        counts = (1, 2, 3, 4, 5) if name.startswith("40 all-dead") else (1, 5)
+        for narr in counts:
+            arrs = tuple(torch.from_numpy(w).to(dev)
+                         for w in live_words(rng, live, narr))
+            k7_check(torch, arrs, f"{name}, {narr} arrays")
+        print(json.dumps({"live_layout": name, "n": int(live.size),
+                          "n_live": int(live.sum()), "arrays": counts,
+                          "mismatches": 0}), flush=True)
+
+
+def k7_profile(torch, fn, iters: int = 10) -> dict:
+    """``iters`` calls of ``fn`` (a compact_live wrapper) under
+    torch.profiler, cut into calls at the device-to-host copy that ends
+    each one (its n_live): device ms per call, in all and in kernels, and
+    kernels per call by name, memsets and copies per call, over the last
+    half of the calls.  The profiler on the H100 machines can lose the
+    first device events of a session late in a long process (one to a
+    few, seen in every session of a ``--baseline`` run), so the first
+    calls are not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    calls, cur = [], []
+    for ev in sorted((ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA),
+                     key=lambda ev: ev.time_range.start):
+        cur.append(ev)
+        if ev.name.startswith("Memcpy"):
+            calls.append(cur)
+            cur = []
+    calls = calls[-(iters // 2):]
+    check(len(calls) == iters // 2, f"the profiler kept {len(calls)} K7 "
+          f"calls of {iters}")
+    us = {"kernel": 0.0, "memset": 0.0, "copy": 0.0}
+    count = {"kernel": 0, "memset": 0, "copy": 0}
+    names = {}
+    for ev in (ev for call in calls for ev in call):
+        kind = ("memset" if ev.name.startswith("Memset") else
+                "copy" if ev.name.startswith("Memcpy") else "kernel")
+        us[kind] += ev.time_range.elapsed_us()
+        count[kind] += 1
+        if kind == "kernel":
+            names[short_name(ev.name)] = names.get(short_name(ev.name), 0) + 1
+    n = len(calls)
+    return {"device_ms": sum(us.values()) / 1e3 / n,
+            "kernel_ms": us["kernel"] / 1e3 / n,
+            "kernels_per_call": count["kernel"] / n,
+            "memsets_per_call": count["memset"] / n,
+            "copies_per_call": count["copy"] / n,
+            "kernels": {k: v / n for k, v in names.items()}}
+
+
+def k7_synthetic(torch, gen, n_syn: int = 64 << 20):
+    """Phase 9's six 64 Mi-entry shapes: (description, arrays on the card
+    made from ``gen``), one at a time."""
+    from kmerutils_tpu_torch.sweep_compact import live_arrays
+    for narr in (1, 5):
+        for frac in (0.1, 0.5, 0.9):
+            yield (f"{n_syn} entries x {narr} arrays, {frac:.0%} live",
+                   live_arrays(gen, n_syn, narr, frac))
+
+
+def k7_stress(torch, arrs, what: str, calls: int = 100) -> None:
+    """``calls`` K7 calls on the same arrays, each output held to the plain
+    version's."""
+    from kmerutils_tpu_torch.ops import merge as M
+    want, n_ref = M.compact_live_ref(arrs)
+    bad = 0
+    for _ in range(calls):
+        got, n = M.compact_live(arrs)
+        bad += int(n != n_ref or not all(torch.equal(g, w)
+                                         for g, w in zip(got, want)))
+    print(f"K7 stress, {what}: {calls} calls, {bad} differ from the plain "
+          f"version", flush=True)
+    check(bad == 0, f"K7 stress at {what}: {bad} of {calls} calls differ")
 
 
 def dense_oracle(reads, k: int, offset: int = 0):
@@ -1265,19 +1399,25 @@ def exact_path_checks(torch, batch, reads, k: int, what: str) -> int:
 
 
 def k7_and_exact(torch, rng, card: str, bounds: Bounds, dev="cuda",
-                 n_syn: int = 64 << 20, bench=(1024, 6000)):
+                 bench=(1024, 6000)):
     phase("9 K7 vs plain (exact) and the exact-counting path")
     from kmerutils_tpu_torch.base.sequence import pack_ascii_reads, pack_codes
     from kmerutils_tpu_torch.count import exact
     from kmerutils_tpu_torch.ops import merge as M
+    from kmerutils_tpu_torch.sweep_compact import exact_path_arrays
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     res = {"mismatches": 0, "max_abs_err": 0, "shapes": []}
+    k7_layout_checks(torch, rng, dev)
 
     def record(arrs, what):
         bad, err = k7_check(torch, arrs, what)
         ms, pms, runs = turns(torch, lambda: M.compact_live(arrs),
                               lambda: M.compact_live_ref(arrs))
+        prof = k7_profile(torch, lambda: M.compact_live(arrs))
+        check(prof["kernels_per_call"] == 1 and prof["memsets_per_call"] == 1,
+              f"K7 at {what}: {prof['kernels']} kernels and "
+              f"{prof['memsets_per_call']} memsets per call, want 1 and 1")
         res["mismatches"] += bad
         res["max_abs_err"] = max(res["max_abs_err"], err)
         # bytes: every array read once and written once (live entries,
@@ -1285,17 +1425,17 @@ def k7_and_exact(torch, rng, card: str, bounds: Bounds, dev="cuda",
         # boolean-mask indexing
         bound = bounds.bytes(8 * arrs[0].numel() * len(arrs))[0]
         res["shapes"].append({"shape": what, "ms": ms, "plain_ms": pms,
-                              "bound_ms": bound})
+                              "bound_ms": bound,
+                              "device_ms": prof["device_ms"]})
         print(json.dumps({"timing": "compact_live", "shape": what,
                           "mismatches": bad, "ms_plain_kern_kern_plain": runs,
-                          "bound_ms": bound, "card": card}), flush=True)
+                          "profile": prof, "bound_ms": bound, "card": card}),
+              flush=True)
         return ms, pms
 
-    for narr in (1, 5):
-        for frac in (0.1, 0.5, 0.9):
-            arrs = live_arrays(torch, gen, n_syn, narr, frac, dev)
-            record(arrs, f"{n_syn} entries x {narr} arrays, {frac:.0%} live")
-            del arrs
+    for what, arrs in k7_synthetic(torch, gen):
+        record(arrs, what)
+        del arrs
     n, L = bench
     codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
     bench = pack_codes(codes, np.full(n, L, np.int32), device=dev)
@@ -1321,16 +1461,77 @@ def k7_and_exact(torch, rng, card: str, bounds: Bounds, dev="cuda",
           "a k=32 key with an all-ones half was lost")
 
     # K7 at the path's own shape: compact_detailed of the bench batch
-    kd = exact.count_batch_detailed(bench, 21)
-    arrs = ((kd[1] - 1).contiguous(), kd[0].to(torch.int32),
-            (kd[0] >> 32).to(torch.int32), kd[2].contiguous(),
-            kd[3].contiguous())
-    ms, pms = record(arrs, f"count_batch_detailed k=21 bench batch "
-                           f"({arrs[0].numel()} entries, {distinct} live) "
-                           f"x 5 arrays")
+    arrs = exact_path_arrays(bench)
+    what = (f"count_batch_detailed k=21 bench batch ({arrs[0].numel()} "
+            f"entries, {distinct} live) x 5 arrays")
+    ms, pms = record(arrs, what)
     res.update(ms=ms, plain_ms=pms, launches=launches,
-               bound_ms=res["shapes"][-1]["bound_ms"])
+               bound_ms=res["shapes"][-1]["bound_ms"],
+               device_ms=res["shapes"][-1]["device_ms"])
+    k7_stress(torch, arrs, what)
+    chain = dict(live_layouts(rng, M.LIVE_TILE))[
+        "40 all-dead tiles, then one live entry"]
+    k7_stress(torch, tuple(torch.from_numpy(w).to(dev)
+                           for w in live_words(rng, chain, 5)),
+              "40 all-dead tiles, then one live entry, 5 arrays")
     return res
+
+
+def k7_against_baseline(torch, rng, card: str, bounds: Bounds,
+                        order) -> None:
+    """K7 of the baseline tree (imported as baseline_port) and of this tree
+    through their public wrappers at phase 9's seven timed shapes: both
+    equal to the plain version, then CUDA-event ms and profiler device ms
+    in turns."""
+    from kmerutils_tpu_torch.ops import merge as M
+    from kmerutils_tpu_torch.sweep_compact import exact_path_arrays
+    mods = {"baseline": importlib.import_module("baseline_port.ops.merge"),
+            "this": M}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+
+    def shapes():
+        yield from k7_synthetic(torch, gen)
+        arrs = exact_path_arrays(random_batch(rng, 1024, 6000))
+        yield "count_batch_detailed k=21 bench batch x 5 arrays", arrs
+
+    for what, arrs in shapes():
+        want, n_ref = M.compact_live_ref(arrs)
+        fns = {k: functools.partial(mod.compact_live, arrs)
+               for k, mod in mods.items()}
+        for k, fn in fns.items():
+            got, n = fn()
+            torch.cuda.synchronize()
+            check(n == n_ref and all(torch.equal(g, w)
+                                     for g, w in zip(got, want)),
+                  f"compact_live at {what}: {k} kernel != plain")
+            del got
+        res = {k: {"ms": [], "device_ms": []} for k in fns}
+        for k in order:
+            res[k]["ms"].append(cuda_ms(torch, fns[k], 10))
+        for k in order:
+            res[k]["device_ms"].append(
+                k7_profile(torch, fns[k])["device_ms"])
+        print(json.dumps({"timing": "compact_live", "shape": what,
+                          "n_live": n_ref, **res,
+                          "bound_ms": bounds.bytes(
+                              8 * arrs[0].numel() * len(arrs))[0],
+                          "card": card}), flush=True)
+        del want, fns, arrs
+        torch.cuda.empty_cache()
+    # the exact-counting path's densify of the bench batch through each
+    # tree's count/exact.py (K7, then the live prefix to the host)
+    batch = random_batch(rng, 1024, 6000)
+    mods = {"baseline": importlib.import_module(
+        "baseline_port.count.exact"), "this": importlib.import_module(
+        "kmerutils_tpu_torch.count.exact")}
+    kd = mods["this"].count_batch_detailed(batch, 21)
+    res = {k: [] for k in mods}
+    for k in order:
+        res[k].append(cuda_ms(torch, lambda: mods[k].compact_detailed(
+            *kd[:4]), 10))
+    print(json.dumps({"timing": "compact_detailed_k21_bench", **res,
+                      "card": card}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1591,7 +1792,8 @@ def load_port(root: str, name: str = "baseline_port"):
 
 def against_baseline(torch, rng, root: str, card: str, ipd: dict,
                      m: int = 200) -> None:
-    phase(f"A/B: K1/K2 and K4/K6 of this tree against the port in {root}")
+    phase(f"A/B: K1/K2, K4/K6 and K7 of this tree against the port in "
+          f"{root}")
     from kmerutils_tpu_torch import roofline
     from kmerutils_tpu_torch.ops import tournament as T
     from kmerutils_tpu_torch.profile_sketch import profile
@@ -1633,6 +1835,7 @@ def against_baseline(torch, rng, root: str, card: str, ipd: dict,
         del args, want, fns
         torch.cuda.empty_cache()
     aggregate_against_baseline(torch, rng, card, bounds, order)
+    k7_against_baseline(torch, rng, card, bounds, order)
     mains = {"baseline": importlib.import_module(
         "baseline_port.cli.datasketcher").main, "this": datasketcher_main()}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1687,7 +1890,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Smoke test of the PyTorch + CUDA port on one GPU.")
     ap.add_argument("--baseline", metavar="ROOT", default=None,
-                    help="compare K1/K2 and K4/K6 with the port in this "
+                    help="compare K1/K2, K4/K6 and K7 with the port in this "
                          "tree instead of running the smoke test")
     args = ap.parse_args(argv)
     try:
@@ -1772,8 +1975,9 @@ def main(argv=None) -> int:
         "mismatches": k7["mismatches"], "max_abs_err": k7["max_abs_err"],
         "ms": k7["ms"], "plain_ms": k7["plain_ms"],
         "bound_ms": k7["bound_ms"], "bound_by": "bytes",
-        "library_ms": k7["plain_ms"],
+        "library_ms": k7["plain_ms"], "device_ms": k7["device_ms"],
         "ms_each_shape": [r["ms"] for r in k7["shapes"]],
+        "device_ms_each_shape": [r["device_ms"] for r in k7["shapes"]],
         "plain_ms_each_shape": [r["plain_ms"] for r in k7["shapes"]],
         "bound_ms_each_shape": [r["bound_ms"] for r in k7["shapes"]]})
     print(card)

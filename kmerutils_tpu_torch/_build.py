@@ -65,14 +65,21 @@ class TournamentPlan(ctypes.Structure):
 
 
 def _declare(lib) -> None:
-    vp, ci, ll, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-        ctypes.c_uint
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.tournament_config.restype = ci
     lib.tournament_config.argtypes = [ci, ci, ctypes.POINTER(ci)]
     lib.launch_tournament.restype = ci
     lib.launch_tournament.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ll, ci,
                                       ci, ci, ctypes.POINTER(TournamentPlan),
                                       vp]
+    declare_merge(lib)
+
+
+def declare_merge(lib) -> None:
+    """argtypes of csrc/merge.cu's entry points (also for a library built
+    from that source alone)."""
+    vp, ci, ll, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_uint
     lib.aggregate_scratch_words.restype = ll
     lib.aggregate_scratch_words.argtypes = [ll]
     lib.aggregate_tile_entries.restype = ci
@@ -86,17 +93,24 @@ def _declare(lib) -> None:
     vpp = ctypes.POINTER(vp)
     lib.compact_scratch_words.restype = ll
     lib.compact_scratch_words.argtypes = [ll]
+    lib.compact_tile_entries.restype = ci
+    lib.compact_tile_entries.argtypes = []
     lib.launch_compact.restype = ci
     lib.launch_compact.argtypes = [ci, vpp, vpp, ll, vp, vp]
 
 
 def launch(fn, *args, device) -> None:
-    """Call a C launcher with the current stream of ``device`` appended;
-    raise when it returns a CUDA error."""
+    """Call a C launcher with the current stream of ``device`` appended,
+    switching to that device only when it is not the current one; raise
+    when it returns a CUDA error."""
     import torch
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
 

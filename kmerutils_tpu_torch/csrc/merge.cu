@@ -77,16 +77,43 @@
 // entries (key all ones) trail, and fills the output past n_live with all
 // ones.  Output and input are different buffers.
 //
-// Compaction (K7): K6 without aggregation, on striped tiles.  A count kernel
-// gives each tile's live entries (a warp sum of each thread's kIpt flags),
-// the one-block scan turns them into offsets, and the emit kernel writes
-// each tile's live entries at its offset, ranked by a warp ballot per round
-// and one scan of the (round, warp) ballot counts, so the order is kept.
-// Each thread issues its kIpt loads of the liveness word before using any,
-// and a tile costs two barriers.  The TPU kernel's butterfly concentrator
-// and aligned DMA windows have no counterpart here.  It reads the liveness
-// word twice and every array once, and writes every array once: 64 Mi
-// entries of five arrays move ~2.9 GB, ~0.9 ms at 3.35 TB/s.
+// Compaction (K7): stable compaction of 1-5 arrays of u32 words, an entry
+// dead when its first word is all ones, in one pass over the entries and
+// one launch (after a memset of the scratch).  A tile is kLiveTile =
+// kLiveThreads x kLiveIpt entries; thread x of the block holds the tile's
+// entries r kLiveThreads + x (round r), so each load instruction reads 128
+// consecutive bytes per warp.  Each block draws its tile id from an atomic
+// counter, not from blockIdx: a tile then only ever waits on tiles whose
+// blocks are already running, and the look-back below cannot deadlock,
+// whatever order the hardware starts blocks in.  A thread issues all its
+// loads of the liveness word, then those of the other arrays for its live
+// entries, before anything waits on the tiles before it.  A ballot per
+// round and one warp scan of the (round, warp) counts rank the tile's live
+// entries in order.  The tile's offset comes from a decoupled look-back
+// (Merrill & Garland, "Single-pass Parallel Prefix Scan with Decoupled
+// Look-back", NVIDIA 2016): every tile has one 64-bit status word, a 2-bit
+// flag (empty, aggregate, inclusive prefix) over a 62-bit live count; a
+// tile publishes its aggregate as soon as it is ranked, then one warp reads
+// its 32 predecessors' words at a time and sums back to the nearest
+// inclusive prefix, and the tile publishes its own inclusive prefix.
+// Memory order: flag and count travel in one aligned 64-bit word, stored
+// with release and loaded with acquire semantics at device scope, so a
+// reader sees a whole old word or a whole new one, never a flag without its
+// count; no other data is published through the word, so nothing else needs
+// ordering.  Every status word, the tile counter and the n_live word are
+// zeroed by a cudaMemsetAsync on the same stream just before the kernel
+// (the caching allocator hands back the last call's scratch).  The tile's
+// live entries are then staged in order in shared memory, one array at a
+// time (two buffers in turn, one barrier per array), and each array is
+// stored contiguously at [excl, excl + live), a full warp per store
+// instruction.  The dead entries need no global total: tile t has d_t =
+// len_t - live_t dead entries and D_t = start_t - excl_t dead entries in
+// the tiles before it, and writes all ones at [n - D_t - d_t, n - D_t).
+// D_0 = 0 and D_t+1 = D_t + d_t, so the intervals of tiles 0, 1, ... lie
+// end to end from n downwards and cover [n - D_total, n) = [n_live, n)
+// exactly, each slot once.  The tile that draws the last id writes its
+// inclusive prefix, n_live, to the scratch's last word.  The TPU kernel's
+// butterfly concentrator and aligned DMA windows have no counterpart here.
 //
 // What bounds them on this card: memory traffic.  Per entry the merge reads
 // and writes the key, count and coordinate once (plus a log2(n) binary
@@ -97,10 +124,25 @@
 // and coordinates and 19 M kept runs move ~1.5 GB, ~0.45 ms.  Neither pass
 // streams at the card's full rate (PERF.md gives each kernel's time): a
 // block loads its tile, then scans it with the memory idle, and the two or
-// three blocks resident on an SM (registers) overlap only in part.
+// three blocks resident on an SM (registers) overlap only in part.  K7
+// reads every word once (the other arrays only where the entry is live) and
+// writes every output word once: 64 Mi entries of five arrays move at most
+// 2.7 GB, 0.80 ms at 3.35 TB/s.  What it adds to the bytes is the chain of
+// look-backs, one L2 round trip or a few per tile, hidden while enough
+// other tiles are loading on the same SM.
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// K7's threads per block and entries per thread; built with other values
+// (-D) only by kmerutils_tpu_torch/sweep_compact.py, which times them.
+#ifndef KMER_LIVE_THREADS
+#define KMER_LIVE_THREADS 256
+#endif
+#ifndef KMER_LIVE_IPT
+#define KMER_LIVE_IPT 16
+#endif
 
 namespace {
 
@@ -648,103 +690,191 @@ agg_emit_kernel(const K* __restrict__ key, const uint32_t* __restrict__ cnt,
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxArrays = 5;
+constexpr int kLiveThreads = KMER_LIVE_THREADS;
+constexpr int kLiveIpt = KMER_LIVE_IPT;
+constexpr int kLiveWarps = kLiveThreads / 32;
+constexpr int kLiveTile = kLiveThreads * kLiveIpt;
+constexpr int kRanks = kLiveIpt * kLiveWarps;    // (round, warp) live counts
+constexpr int kRanksPerLane = (kRanks + 31) / 32;
+// two staging buffers used in turn where they fit in the 48 KB of static
+// shared memory, else one (and a second barrier per array)
+constexpr int kLiveBufs =
+    2 * kLiveTile * 4 + 4 * kRanks + 64 <= 48 * 1024 ? 2 : 1;
+static_assert(kLiveThreads % 32 == 0 && kLiveThreads <= 1024,
+              "K7: whole warps, at most 1024 threads");
+static_assert(kLiveIpt <= 32 && kLiveTile * 4 + 4 * kRanks + 64 <= 48 * 1024,
+              "K7: the tile must fit in static shared memory");
+
+// A tile's status word: a flag in bits 62-63 (0: nothing published yet),
+// the live count of the tile (aggregate) or of the tiles up to it
+// (inclusive prefix) below.
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kPrefix = 2ull << 62;
+constexpr unsigned long long kCountBits = kAggregate - 1;
+
+using StatusRef =
+    cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>;
+
+__device__ __forceinline__ void publish(unsigned long long* word,
+                                        unsigned long long v) {
+  StatusRef(*word).store(v, cuda::std::memory_order_release);
+}
+
+__device__ __forceinline__ unsigned long long status_of(
+    unsigned long long* word) {
+  return StatusRef(*word).load(cuda::std::memory_order_acquire);
+}
 
 struct CompactArrays {
   const uint32_t* in[kMaxArrays];
   uint32_t* out[kMaxArrays];
 };
 
-// The tile's entries j = r * kThreads + threadIdx.x (r < kIpt) of w, all
-// kIpt loads issued before any is used; entries past len read as dead.
-__device__ __forceinline__ void load_round_words(const uint32_t* w,
-                                                 long long start, int len,
-                                                 uint32_t (&v)[kIpt]) {
+// The live entries of the tiles before tile t > 0, by one warp.  Tile t's
+// aggregate is published first.  The warp then reads the status words of
+// tiles [end - 32, end), lane 31 the nearest, each lane waiting until its
+// word is no longer empty, and adds the counts from the nearest inclusive
+// prefix on; without one it adds all 32 and reads the 32 tiles before.
+// Every tile before t has drawn its id, so its block is running and
+// publishes its aggregate without waiting on anything: the wait ends.
+// Tile t then publishes its inclusive prefix.
+__device__ long long look_back(unsigned long long* status, long long t,
+                               int live, int lane) {
+  if (lane == 0) publish(status + t, kAggregate | (unsigned long long)live);
+  long long excl = 0;
+  for (long long end = t;; end -= 32) {
+    const long long u = end - 32 + lane;
+    unsigned long long w = kPrefix;        // before tile 0: a prefix of 0
+    if (u >= 0) {
+      do {
+        w = status_of(status + u);
+      } while (w >> 62 == 0);
+    }
+    const unsigned pre = __ballot_sync(kFull, (w & ~kCountBits) == kPrefix);
+    const int from = pre ? 31 - __clz(pre) : 0;
+    long long c = lane >= from ? (long long)(w & kCountBits) : 0;
 #pragma unroll
-  for (int r = 0; r < kIpt; ++r) {
-    const int j = r * kThreads + (int)threadIdx.x;
-    v[r] = j < len ? w[start + j] : ~0u;
+    for (int d = 16; d > 0; d >>= 1) c += __shfl_xor_sync(kFull, c, d);
+    excl += c;
+    if (pre) break;
   }
+  if (lane == 0) {
+    publish(status + t, kPrefix | (unsigned long long)(excl + live));
+  }
+  return excl;
 }
 
-// Per tile of kTile entries: the number of live entries (in[0] != all ones).
-__global__ void __launch_bounds__(kThreads)
-compact_count_kernel(const uint32_t* __restrict__ live_word, long long n,
-                     long long* offs) {
-  __shared__ int s_warp[kWarps];
-  const int tid = (int)threadIdx.x;
-  const long long start = (long long)blockIdx.x * kTile;
-  const int len = (int)(n - start < kTile ? n - start : kTile);
-  uint32_t v[kIpt];
-  load_round_words(live_word, start, len, v);
-  int cnt = 0;
-#pragma unroll
-  for (int r = 0; r < kIpt; ++r) cnt += v[r] != ~0u ? 1 : 0;
-  cnt = __reduce_add_sync(0xFFFFFFFFu, cnt);
-  if ((tid & 31) == 0) s_warp[tid >> 5] = cnt;
-  __syncthreads();
-  if (tid == 0) {
-    int sum = 0;
-    for (int w = 0; w < kWarps; ++w) sum += s_warp[w];
-    offs[blockIdx.x] = sum;
-  }
-}
-
-// Each tile writes its live entries, in order, from its exclusive offset.
-// Round r of warp w holds the tile's entries r * kThreads + 32 w + lane; a
-// ballot per round gives each live entry its rank in the warp, and one scan
-// of the kIpt x kWarps ballot counts, round-major, gives each (round, warp)
-// its offset.  Output slots at or past the total live count that fall in
-// this tile's index range get all ones in every array.
-__global__ void __launch_bounds__(kThreads)
-compact_emit_kernel(CompactArrays a, int narr, long long n,
-                    const long long* __restrict__ offs, long long n_tiles) {
-  __shared__ int s_off[kIpt][kWarps];
+// One tile per block, drawn from *next_tile; see the header.  status[t] is
+// tile t's status word, *n_live receives the live count; all three zeroed
+// before the launch.
+template <int kNarr>
+__global__ void __launch_bounds__(kLiveThreads)
+compact_kernel(CompactArrays a, long long n, long long n_tiles,
+               unsigned long long* status, unsigned* next_tile,
+               long long* n_live) {
+  __shared__ uint32_t s_buf[kLiveBufs][kLiveTile];
+  __shared__ int s_rank[kRanks];  // (round, warp) counts, then offsets
+  __shared__ long long s_excl;
+  __shared__ int s_live;
+  __shared__ unsigned s_tile;
   const int tid = (int)threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const long long start = (long long)blockIdx.x * kTile;
-  const int len = (int)(n - start < kTile ? n - start : kTile);
-  uint32_t v[kIpt];
-  load_round_words(a.in[0], start, len, v);
-  unsigned ballot[kIpt];
+  if (tid == 0) s_tile = atomicAdd(next_tile, 1u);
+  __syncthreads();
+  const long long t = s_tile;
+  const long long start = t * kLiveTile;
+  const int len = (int)(n - start < kLiveTile ? n - start : kLiveTile);
+  // every load issued before anything waits on another tile: the liveness
+  // word, then the other arrays' words of the live entries
+  uint32_t v[kNarr][kLiveIpt];
 #pragma unroll
-  for (int r = 0; r < kIpt; ++r) {
-    ballot[r] = __ballot_sync(0xFFFFFFFFu, v[r] != ~0u);
-    if (lane == 0) s_off[r][warp] = __popc(ballot[r]);
+  for (int r = 0; r < kLiveIpt; ++r) {
+    const int j = r * kLiveThreads + tid;
+    v[0][r] = j < len ? a.in[0][start + j] : ~0u;
+  }
+#pragma unroll
+  for (int q = 1; q < kNarr; ++q) {
+#pragma unroll
+    for (int r = 0; r < kLiveIpt; ++r) {
+      const int j = r * kLiveThreads + tid;
+      v[q][r] = v[0][r] != ~0u ? a.in[q][start + j] : 0u;
+    }
+  }
+  // ranks in the tile: a ballot per round, one warp scan of the counts in
+  // entry order (round-major, then warp)
+  unsigned ballot[kLiveIpt];
+#pragma unroll
+  for (int r = 0; r < kLiveIpt; ++r) {
+    ballot[r] = __ballot_sync(kFull, v[0][r] != ~0u);
+    if (lane == 0) s_rank[r * kLiveWarps + warp] = __popc(ballot[r]);
   }
   __syncthreads();
-  if (tid == 0) {
-    int run = 0;
-    for (int r = 0; r < kIpt; ++r) {
-      for (int w = 0; w < kWarps; ++w) {
-        const int c = s_off[r][w];
-        s_off[r][w] = run;
-        run += c;
-      }
+  if (warp == 0) {
+    int c[kRanksPerLane];
+    int sum = 0;
+#pragma unroll
+    for (int i = 0; i < kRanksPerLane; ++i) {
+      const int k = lane * kRanksPerLane + i;
+      c[i] = k < kRanks ? s_rank[k] : 0;
+      sum += c[i];
+    }
+    int inc = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int x = __shfl_up_sync(kFull, inc, d);
+      if (lane >= d) inc += x;
+    }
+    int run = inc - sum;
+#pragma unroll
+    for (int i = 0; i < kRanksPerLane; ++i) {
+      const int k = lane * kRanksPerLane + i;
+      if (k < kRanks) s_rank[k] = run;
+      run += c[i];
+    }
+    const int live = __shfl_sync(kFull, inc, 31);
+    long long excl = 0;
+    if (t > 0) {
+      excl = look_back(status, t, live, lane);
+    } else if (lane == 0) {
+      publish(status, kPrefix | (unsigned long long)live);
+    }
+    if (lane == 0) {
+      s_excl = excl;
+      s_live = live;
+      if (t == n_tiles - 1) *n_live = excl + live;
     }
   }
   __syncthreads();
-  const long long base = offs[blockIdx.x];
+  const long long excl = s_excl;
+  const int live = s_live;
   const unsigned below = (1u << lane) - 1u;
+  int pos[kLiveIpt];  // each live entry's rank in the tile, -1 when dead
 #pragma unroll
-  for (int r = 0; r < kIpt; ++r) {
-    if (v[r] == ~0u) continue;
-    const long long i = start + r * kThreads + tid;
-    const long long o = base + s_off[r][warp] + __popc(ballot[r] & below);
-    a.out[0][o] = v[r];
-#pragma unroll
-    for (int q = 1; q < kMaxArrays; ++q) {
-      if (q < narr) a.out[q][o] = a.in[q][i];
-    }
+  for (int r = 0; r < kLiveIpt; ++r) {
+    pos[r] = (ballot[r] >> lane) & 1u
+                 ? s_rank[r * kLiveWarps + warp] + __popc(ballot[r] & below)
+                 : -1;
   }
-  const long long total = offs[n_tiles];
-  for (int j = tid; j < len; j += kThreads) {
-    const long long i = start + j;
-    if (i < total) continue;
+  // each array staged in order, then stored at [excl, excl + live)
 #pragma unroll
-    for (int q = 0; q < kMaxArrays; ++q) {
-      if (q < narr) a.out[q][i] = ~0u;
+  for (int q = 0; q < kNarr; ++q) {
+    uint32_t* buf = s_buf[q % kLiveBufs];
+    if (kLiveBufs == 1 && q > 0) __syncthreads();  // the last stores read it
+#pragma unroll
+    for (int r = 0; r < kLiveIpt; ++r) {
+      if (pos[r] >= 0) buf[pos[r]] = v[q][r];
     }
+    __syncthreads();
+    uint32_t* out = a.out[q] + excl;
+    for (int x = tid; x < live; x += kLiveThreads) out[x] = buf[x];
+  }
+  // all ones at [n - D - dead, n - D), D the dead entries before the tile
+  const int dead = len - live;
+  const long long f0 = n - (start - excl) - dead;
+#pragma unroll
+  for (int q = 0; q < kNarr; ++q) {
+    for (int x = tid; x < dead; x += kLiveThreads) a.out[q][f0 + x] = ~0u;
   }
 }
 
@@ -889,21 +1019,26 @@ extern "C" int launch_aggregate(int key_bytes, int has_crd, int sentinel,
   return (int)cudaErrorInvalidValue;
 }
 
-// int64 words of scratch that launch_compact needs for n entries.
+// int64 words of scratch that launch_compact needs for n entries: a status
+// word per tile, the tile counter, then the live count.
 extern "C" long long compact_scratch_words(long long n) {
-  return (n + kTile - 1) / kTile + 1;
+  return (n + kLiveTile - 1) / kLiveTile + 2;
 }
+
+// Entries per tile of K7 (ops/merge.py's LIVE_TILE).
+extern "C" int compact_tile_entries() { return kLiveTile; }
 
 // K7: stable compaction of narr (1-5) arrays of n u32 words.  An entry is
 // live when ins[0] is not all ones; outs receive the live entries first, in
 // order, and all ones after them.  ins and outs are host arrays of narr
-// device pointers; scratch holds compact_scratch_words(n) int64 words and
-// its last word receives the live count.
+// device pointers; scratch holds compact_scratch_words(n) int64 words,
+// cleared here on the stream before the one kernel, and its last word
+// receives the live count.
 extern "C" int launch_compact(int narr, void* const* ins, void* const* outs,
                               long long n, void* scratch, void* stream) {
   if (narr < 1 || narr > kMaxArrays) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
-  const long long n_tiles = (n + kTile - 1) / kTile;
+  const long long n_tiles = (n + kLiveTile - 1) / kLiveTile;
   if (n_tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
   CompactArrays a = {};
@@ -911,15 +1046,34 @@ extern "C" int launch_compact(int narr, void* const* ins, void* const* outs,
     a.in[q] = (const uint32_t*)ins[q];
     a.out[q] = (uint32_t*)outs[q];
   }
-  long long* offs = (long long*)scratch;
-  compact_count_kernel<<<(unsigned)n_tiles, kThreads, 0, st>>>(a.in[0], n,
-                                                               offs);
-  int rc = (int)cudaGetLastError();
+  long long* s = (long long*)scratch;
+  int rc = (int)cudaMemsetAsync(
+      s, 0, (size_t)compact_scratch_words(n) * sizeof(long long), st);
   if (rc != 0) return rc;
-  scan_kernel<<<1, kScanThreads, 0, st>>>(offs, n_tiles);
-  rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  compact_emit_kernel<<<(unsigned)n_tiles, kThreads, 0, st>>>(a, narr, n, offs,
-                                                              n_tiles);
+  unsigned long long* status = (unsigned long long*)s;
+  unsigned* next_tile = (unsigned*)(s + n_tiles);
+  long long* n_live = s + n_tiles + 1;
+  const unsigned grid = (unsigned)n_tiles;
+  switch (narr) {
+    case 1:
+      compact_kernel<1><<<grid, kLiveThreads, 0, st>>>(a, n, n_tiles, status,
+                                                       next_tile, n_live);
+      break;
+    case 2:
+      compact_kernel<2><<<grid, kLiveThreads, 0, st>>>(a, n, n_tiles, status,
+                                                       next_tile, n_live);
+      break;
+    case 3:
+      compact_kernel<3><<<grid, kLiveThreads, 0, st>>>(a, n, n_tiles, status,
+                                                       next_tile, n_live);
+      break;
+    case 4:
+      compact_kernel<4><<<grid, kLiveThreads, 0, st>>>(a, n, n_tiles, status,
+                                                       next_tile, n_live);
+      break;
+    default:
+      compact_kernel<5><<<grid, kLiveThreads, 0, st>>>(a, n, n_tiles, status,
+                                                       next_tile, n_live);
+  }
   return (int)cudaGetLastError();
 }

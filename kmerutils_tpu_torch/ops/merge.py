@@ -34,6 +34,7 @@ tensors: the kernels never work in place.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,6 +44,9 @@ from .bitops import M32, flip64
 # entries per tile of the K4/K6 kernels (kAggTile of csrc/merge.cu, which
 # reports it as aggregate_tile_entries); runs are joined across tiles
 AGG_TILE = 4096
+# entries per tile of the K7 kernel (kLiveTile, reported as
+# compact_tile_entries)
+LIVE_TILE = 4096
 
 # kernel launches by the wrappers (not by the plain versions)
 launches_merge = 0       # K5
@@ -89,6 +93,23 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+_checked_lib = None
+
+
+def _load():
+    """The kernels' library (_build.load), its tile sizes checked once
+    against AGG_TILE and LIVE_TILE: a mismatch raises."""
+    global _checked_lib
+    lib = _build.load()
+    if lib is not _checked_lib:
+        tiles = (lib.aggregate_tile_entries(), lib.compact_tile_entries())
+        if tiles != (AGG_TILE, LIVE_TILE):
+            raise RuntimeError(f"csrc/merge.cu tiles (K4/K6, K7) {tiles} != "
+                               f"ops/merge.py's {(AGG_TILE, LIVE_TILE)}")
+        _checked_lib = lib
+    return lib
+
+
 def _empty_like(t):
     return None if t is None else torch.empty_like(t)
 
@@ -115,7 +136,7 @@ def merge_sorted(a_key, a_crd, b_key, b_crd):
                          "coordinates")
     if dev.type == "cpu":
         return merge_sorted_ref(a_key, a_crd, b_key, b_crd)
-    lib = _build.load()
+    lib = _load()
     n = a_key.numel() + b_key.numel()
     o_key = torch.empty(n, dtype=a_key.dtype, device=dev)
     o_crd = None if a_crd is None else torch.empty(n, dtype=torch.int64,
@@ -145,7 +166,7 @@ def merge_fold(key, cnt, crd, used: int, b_key, b_crd, capacity: int):
         raise ValueError(f"merge_fold: used={used} outside the table")
     if dev.type == "cpu":
         return merge_fold_ref(key, cnt, crd, used, b_key, b_crd, capacity)
-    lib = _build.load()
+    lib = _load()
     o_key = torch.empty(capacity, dtype=key.dtype, device=dev)
     o_cnt = torch.empty(capacity, dtype=torch.int32, device=dev)
     o_crd = None if crd is None else torch.empty(capacity, dtype=torch.int64,
@@ -166,7 +187,7 @@ def merge_fold(key, cnt, crd, used: int, b_key, b_crd, capacity: int):
 # ---------------------------------------------------------------------------
 
 def _aggregate_cuda(key, cnt, crd, n: int, lo: int, hi, sentinel: bool):
-    lib = _build.load()
+    lib = _load()
     dev = key.device
     o_key, o_cnt, o_crd = _empty_like(key), _empty_like(cnt), _empty_like(crd)
     if n == 0:
@@ -243,19 +264,34 @@ def compact_live(arrs):
     dev = _check_arrays(arrs, "compact_live")
     if dev.type == "cpu":
         return compact_live_ref(arrs)
-    lib = _build.load()
-    n = arrs[0].numel()
-    outs = tuple(torch.empty_like(a) for a in arrs)
+    out = compact_live_with(_load(), arrs)
+    if arrs[0].numel():
+        launches_live += 1
+    return out
+
+
+@functools.cache
+def _pointers(narr: int):
+    return ctypes.c_void_p * narr
+
+
+def compact_live_with(lib, arrs):
+    """K7 through the ctypes library ``lib`` (the kernels' own, or a
+    variant that sweep_compact.py built) on checked CUDA arrays: one
+    launch, one read of n_live.  The output arrays are the rows of one
+    new [narr, m] tensor (one allocation)."""
+    n, dev = arrs[0].numel(), arrs[0].device
+    outs = torch.empty((len(arrs), n), dtype=torch.int32,
+                       device=dev).unbind(0)
     if n == 0:
         return outs, 0
     scratch = torch.empty(lib.compact_scratch_words(n), dtype=torch.int64,
                           device=dev)
-    ptrs = ctypes.c_void_p * len(arrs)
+    ptrs = _pointers(len(arrs))
     _build.launch(lib.launch_compact, len(arrs),
                   ptrs(*[a.data_ptr() for a in arrs]),
                   ptrs(*[o.data_ptr() for o in outs]), n, scratch.data_ptr(),
                   device=dev)
-    launches_live += 1
     return outs, int(scratch[-1].item())
 
 

@@ -70,21 +70,26 @@ def profile(fn, iters: int) -> dict:
     fn()
     torch.cuda.synchronize()
     plain_ms = loop_ms(fn, iters)
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        profiled_ms = loop_ms(fn, iters)
+    # a session now and then records no device events at all (seen on the
+    # H100 machines late in a long process): such a session is run again
+    for _ in range(3):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            profiled_ms = loop_ms(fn, iters)
+        device = [ev for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA]
+        if device:
+            break
+    else:
+        raise RuntimeError("the profiler recorded no device events")
     fams: dict[str, float] = {}
     per_kernel: dict[str, float] = {}
     n_kernels = 0
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
+    for ev in device:
         us = ev.time_range.elapsed_us()
         n_kernels += 1
         fams[family(ev.name)] = fams.get(family(ev.name), 0.0) + us
         per_kernel[ev.name] = per_kernel.get(ev.name, 0.0) + us
-    if not n_kernels:
-        raise RuntimeError("the profiler recorded no device events")
     busy_ms = sum(fams.values()) / 1e3
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     return {

@@ -5,16 +5,23 @@ whole-collection sketch with the JAX package, on the CPU.
 The same numpy-seeded reads go through both packages.  JAX's K7
 (``compact_live_u32``) runs in interpret mode; the port's K7 takes its
 plain version on CPU tensors.  JAX's K7 returns arrays padded to a whole
-number of tiles: only the first m entries are compared.
+number of tiles: only the first m entries are compared.  K7's plain
+version is also held to a numpy statement of its contract at the layouts
+around the CUDA kernel's tile that chip_smoke.py checks the kernel at on
+the card (``chip_smoke.live_layouts``).
 
 Tolerance: exact equality of every key, count, coordinate, hash, signature
 and estimate.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from kmerutils_tpu.base import kmer as j_kmer
 from kmerutils_tpu.base import nthash as j_nthash
 from kmerutils_tpu.base.sequence import pack_ascii_reads as j_pack
@@ -86,6 +93,68 @@ def test_compact_live_ref_matches_jax(m, narr, tile, frac):
     for g, w in zip(got, want):
         assert np.array_equal(u(g), np.asarray(w)[:m])   # JAX pads to tiles
     assert t_merge.launches_live == 0     # CPU tensors: the plain version
+
+
+def test_compact_live_ref_matches_jax_across_a_dead_stretch():
+    # five arrays; a dead stretch longer than one JAX tile between live
+    # entries on both sides
+    m, tile = 3000, 1024
+    rng = np.random.default_rng(11)
+    live = rng.random(m) < 0.5
+    live[700:2100] = False
+    arrs = chip_smoke.live_words(rng, live, 5)
+    want, want_n = j_mp.compact_live_u32(tuple(a.view(np.uint32)
+                                               for a in arrs), tile=tile)
+    got, n_live = t_merge.compact_live(tuple(torch.from_numpy(a)
+                                             for a in arrs))
+    assert n_live == int(want_n) == int(live.sum())
+    for g, w in zip(got, want):
+        assert np.array_equal(u(g), np.asarray(w)[:m])
+
+
+# K7's layouts around its tile (chip_smoke.live_layouts, which phase 9 of
+# chip_smoke.py runs on the card): the plain version against a numpy
+# oracle of the contract
+LIVE_LAYOUTS = [case[0] for case in chip_smoke.live_layouts(
+    np.random.default_rng(0), t_merge.LIVE_TILE)]
+
+
+def live_layout_case(layout: str, narr: int):
+    rng = np.random.default_rng(0)
+    live = dict(chip_smoke.live_layouts(rng, t_merge.LIVE_TILE))[layout]
+    return live, chip_smoke.live_words(rng, live, narr)
+
+
+def assert_compacted(live, words):
+    got, n_live = t_merge.compact_live(tuple(torch.from_numpy(w)
+                                             for w in words))
+    assert n_live == int(live.sum())
+    for g, w in zip(got, words):
+        want = np.full(w.size, -1, np.int32)
+        want[:n_live] = w[live]
+        assert g.dtype == torch.int32 and np.array_equal(g.numpy(), want)
+
+
+@pytest.mark.parametrize("narr", [1, 5])
+@pytest.mark.parametrize("layout", LIVE_LAYOUTS)
+def test_compact_live_ref_at_tile_layouts(layout, narr):
+    assert_compacted(*live_layout_case(layout, narr))
+
+
+@pytest.mark.parametrize("narr", [2, 3, 4])
+def test_compact_live_ref_through_a_dead_chain(narr):
+    assert_compacted(*live_layout_case(
+        "40 all-dead tiles, then one live entry", narr))
+
+
+def test_live_tile_matches_the_kernel_source():
+    # kLiveTile = KMER_LIVE_THREADS x KMER_LIVE_IPT (their defaults in
+    # csrc/merge.cu); the library reports it on the card
+    src = open(os.path.join(os.path.dirname(t_merge.__file__), "..", "csrc",
+                            "merge.cu")).read()
+    defaults = dict(re.findall(r"#define (KMER_LIVE_\w+) (\d+)", src))
+    assert int(defaults["KMER_LIVE_THREADS"]) \
+        * int(defaults["KMER_LIVE_IPT"]) == t_merge.LIVE_TILE
 
 
 def test_compact_live_checks_inputs():
