@@ -35,12 +35,20 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
 7. K5 (merge_sorted), K3 (merge_fold), K4 (aggregate_fold) and K6
    (aggregate_compact) vs their plain versions on the card, exact, at the
    counting path's shapes (two 8 Mi-entry runs; an 8 Mi-entry batch into
-   ~40 M live entries at capacity 2^26; ~50 M entries, half duplicates,
-   counts near 2^32: u32 keys with and without coordinates and a count
-   filter, u64 keys with coordinates), each timed against its plain
-   version, its bytes bound and, for K3/K5, a stable ``torch.sort`` of the
-   concatenated keys (``library_ms``), K4/K6 also by profiler device time,
-   in all and for each of their kernels;
+   ~40 M live entries at capacity 2^26, each with u32 keys and with u64
+   keys and coordinates, ``merge_shapes``; ~50 M entries, half
+   duplicates, counts near 2^32: u32 keys with and without coordinates and
+   a count filter, u64 keys with coordinates), each timed against its
+   plain version, its bytes bound and, for K3/K5, a stable ``torch.sort``
+   of the concatenated keys (``library_ms``), all by profiler device time
+   too (K3/K5: one merge kernel per call and nothing else; K4/K6 in all
+   and for each of their kernels); 100 K5 calls at its u32 shape, each
+   equal to the plain version; K3/K5 exact at the layouts of
+   ``merge_layouts`` around their tile (na or nb 0 or 1, n = tile - 1,
+   tile, tile + 1, all of A below or above all of B, one key over three
+   tiles, equal-key runs straddling tile diagonals from both sides, keys
+   across 2^31 and 2^63, K3 capacities cutting the merge mid-tile and at a
+   tile edge), u32 and u64 keys, with and without coordinates;
    then K4/K6 exact at the layouts of ``agg_layouts`` around their tile
    (a run of 3.5 tiles, runs ending on and one past tile boundaries, all
    keys distinct, sums saturating only across a tile boundary, lo/hi
@@ -88,9 +96,9 @@ builds that tree's kernels into ROOT/build/ and compares its K1/K2 with
 this tree's through both packages' public wrappers, in turns (baseline,
 this, this, baseline): at phase 6's shapes and sketch_collection's row,
 CUDA-event ms, host ms to enqueue one call and device ms (torch.profiler),
-every result equal to the plain version; K4/K6 at phase 7's timed shapes
-and K7 at phase 9's seven timed shapes the same way (event ms and device
-ms); then ``datasketcher -b 512 -k 8``
+every result equal to the plain version; K3/K5 and K4/K6 at phase 7's
+timed shapes and K7 at phase 9's seven timed shapes the same way (event ms
+and device ms); then ``datasketcher -b 512 -k 8``
 of each package over phase 5's ONT-like file (wall ms, device ms, the
 tournament kernels' device ms).  It prints one JSON line per result and
 the card line, and no ``ok`` line.
@@ -675,6 +683,41 @@ def coords(rng, n: int):
     return rng.integers(0, 1 << 63, size=n, dtype=np.int64)
 
 
+def merge_shapes(torch, rng, n_run: int = 8 << 20, cap: int = 1 << 26,
+                 used: int = 40_000_000):
+    """K3/K5's timed shapes, one at a time, on the card: (wrapper name,
+    description, wrapper args, bytes the merge must move: each input entry
+    read once, each output entry written once).  Two n_run-entry runs, and
+    an n_run-entry run folded into ``used`` live entries of a table of
+    ``cap``, each with u32 keys and with u64 keys and coordinates."""
+    for wide, with_crd in ((False, False), (True, True)):
+        a, b = (to_dev(torch, sorted_keys(rng, n_run, wide, 0.3))
+                for _ in range(2))
+        ac, bc = (to_dev(torch, coords(rng, n_run) if with_crd else None)
+                  for _ in range(2))
+        ent = a.element_size() + (8 if with_crd else 0)
+        yield ("merge_sorted", f"2 x {n_run} {'u64' if wide else 'u32'} "
+               f"keys{' + coords' if with_crd else ''}", (a, ac, b, bc),
+               4 * n_run * ent)
+        del a, b, ac, bc
+    for wide, with_crd in ((False, False), (True, True)):
+        t_key = to_dev(torch, np.concatenate([
+            sorted_keys(rng, used, wide, 0.2),
+            np.zeros(cap - used, np.int64 if wide else np.int32)]))
+        t_cnt = to_dev(torch, rng.integers(1, 100, size=cap).astype(
+            np.int32))
+        t_crd = to_dev(torch, coords(rng, cap) if with_crd else None)
+        b = to_dev(torch, sorted_keys(rng, n_run, wide, 0.5))
+        bc = to_dev(torch, coords(rng, n_run) if with_crd else None)
+        ent = t_key.element_size() + (8 if with_crd else 0)
+        yield ("merge_fold", f"{n_run} into {used} of {cap}, "
+               f"{'u64' if wide else 'u32'} keys"
+               f"{' + coords' if with_crd else ''}",
+               (t_key, t_cnt, t_crd, used, b, bc, cap),
+               used * (ent + 4) + n_run * ent + (used + n_run) * (ent + 4))
+        del t_key, t_cnt, t_crd, b, bc
+
+
 def short_runs(rng, n: int, longest: int = 40):
     """Run lengths 1..longest summing to n."""
     lens = rng.integers(1, longest + 1, size=n // 2 + 1)
@@ -762,6 +805,87 @@ def agg_layouts(rng, tile: int):
     return cases
 
 
+def merge_layouts(rng, tile: int):
+    """Adversarial inputs of K3/K5 around their tile of ``tile`` outputs:
+    (name, A, B, K3 capacity or None for na + nb), A and B ascending
+    uint64 values below 2^32 spread over the whole range (a third with the
+    top bit set), made into keys by ``merge_keys``."""
+    T = tile
+
+    def vals(n, pool=None):
+        v = rng.integers(0, 1 << 32, size=pool or n, dtype=np.uint64)
+        v[: len(v) // 3] |= np.uint64(1 << 31)
+        return np.sort(rng.choice(v, size=n) if pool else v)
+
+    def split(v):
+        """v cut at random into two ascending runs."""
+        to_a = rng.random(v.size) < 0.5
+        return v[to_a], v[~to_a]
+
+    def straddling(cuts):
+        """Runs of one key in A and in B placed so that output diagonal D
+        falls o entries after the run's start, for each (D, o, ra, rb) of
+        cuts: inside A's part, at its end, inside B's part, at its
+        start; distinct filler keys between runs, each to A or B."""
+        a, b, pos, key = [], [], 0, 0
+        for d, o, ra, rb in cuts:
+            while pos < d - o:
+                key += int(rng.integers(1, 1 << 16))
+                (a if rng.random() < 0.5 else b).append(key)
+                pos += 1
+            key += int(rng.integers(1, 1 << 16))
+            a += [key] * ra
+            b += [key] * rb
+            pos += ra + rb
+        for _ in range(T // 2):
+            key += int(rng.integers(1, 1 << 16))
+            (a if rng.random() < 0.5 else b).append(key)
+        base = np.uint64((1 << 31) - key // 2)   # across 2^31
+        return (base + np.array(a, np.uint64), base + np.array(b, np.uint64))
+
+    e = np.zeros(0, np.uint64)
+    one = vals(1)
+    cases = [("na=0, nb=1", e, one, None), ("na=1, nb=0", one, e, None),
+             ("na=1, nb=1, equal keys", one, one.copy(), None),
+             ("na=0, nb=2.5 tiles", e, vals(2 * T + T // 2), None),
+             ("na=2.5 tiles, nb=0", vals(2 * T + T // 2), e, None),
+             ("na=1, nb=3 tiles", vals(1), vals(3 * T), None),
+             ("na=3 tiles, nb=1", vals(3 * T), vals(1), None)]
+    for n in (T - 1, T, T + 1):
+        cases.append((f"n={n}, ties", *split(vals(n, pool=n // 4)), None))
+    v = vals(5 * T + 3)
+    lo, hi = v[: v.size // 2], v[v.size // 2:]
+    cases.append(("all of A below all of B", lo, hi, None))
+    cases.append(("all of B below all of A", hi, lo, None))
+    # the splits at the top of their search ranges, ranges of every tile
+    # multiple up to 130 (a multiple of 33, 65 or 129 among them)
+    v = vals(260 * T)
+    cases.append(("all of A below all of B, 130 tiles each",
+                  v[: 130 * T], v[130 * T:], None))
+    k = vals(1)
+    cases.append(("one key over 3 tiles", np.repeat(k, T + T // 2 + 5),
+                  np.repeat(k, T + T // 2 + 7), None))
+    cases.append(("equal-key runs straddling tile diagonals", *straddling(
+        [(T, 5, 47, 35), (2 * T, 54, 54, 40), (3 * T, 64, 61, 45),
+         (4 * T, 0, 68, 50), (5 * T, 1, 1, 300)]), None))
+    cases.append(("random with ties over 2.5 tiles",
+                  *split(vals(2 * T + T // 2, pool=T)), None))
+    cases.append(("K3 capacity cuts mid-tile", vals(T + 100), vals(2 * T),
+                  T + T // 2 + 3))
+    cases.append(("K3 capacity at a tile edge", vals(T + 10), vals(2 * T),
+                  2 * T))
+    return cases
+
+
+def merge_keys(v, wide: bool):
+    """merge_layouts values as u32 keys (int32 bit patterns) or as u64 keys
+    (int64 bit patterns, v << 32 | v >> 16: the same order and ties, the
+    top bit set where v's is)."""
+    if not wide:
+        return v.astype(np.uint32).view(np.int32)
+    return ((v << np.uint64(32)) | (v >> np.uint64(16))).view(np.int64)
+
+
 def layout_keys(rng, lens, wide: bool):
     """Ascending keys with runs of the given lengths (int32 / int64 bit
     patterns), from 2^31 (u32) or 2^63 (u64) up, never all ones."""
@@ -807,28 +931,129 @@ def turns(torch, kern, plain, iters: int = 10, plain_iters: int = 3):
     return min(k1, k2), min(p1, p2), [p1, k1, k2, p2]
 
 
+def merge_out(got):
+    """(arrays, entries to compare) of a merge_sorted or merge_fold
+    result."""
+    if len(got) == 2:
+        return got, got[0].numel()
+    return got[:3], got[3]
+
+
+def merge_check(torch, fn, ref, args, what: str):
+    """K3 or K5 of the wrapper ``fn`` against its plain version ``ref`` on
+    args: (mismatches, max abs err, the plain result); fails on any
+    difference or another length."""
+    got, want = fn(*args), ref(*args)
+    sync(torch, args[0].device)
+    (g, n), (w, n_ref) = merge_out(got), merge_out(want)
+    check(n == n_ref, f"{fn.__name__} at {what}: {n} entries != {n_ref}")
+    bad, err = compare(torch, g, w, n)
+    check(bad == 0 and err == 0, f"{fn.__name__} != plain at {what}: {bad} "
+          f"mismatches")
+    return bad, err, want
+
+
+def merge_profile(torch, fn, iters: int = 10) -> dict:
+    """``iters`` calls of ``fn`` (a merge_sorted or merge_fold call) under
+    torch.profiler: device ms per call and the calls' device events.  A
+    call launches one merge kernel and nothing else (no copy, no memset),
+    so every device event must be a merge kernel and each is one call;
+    the profiler can lose the first events of a session late in a long
+    process (see k7_profile), so the time is the mean of the last half."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((ev for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA),
+                 key=lambda ev: ev.time_range.start)
+    names = {short_name(ev.name) for ev in evs}
+    check(all(n.startswith("merge_kernel") for n in names)
+          and iters // 2 <= len(evs) <= iters,
+          f"merge profile: {len(evs)} device events of {names} for {iters} "
+          f"calls, want one merge kernel per call")
+    last = evs[-(iters // 2):]
+    return {"device_ms": sum(ev.time_range.elapsed_us()
+                             for ev in last) / 1e3 / len(last),
+            "kernels": sorted(names), "calls_recorded": len(evs),
+            "calls": iters}
+
+
+def merge_stress(torch, fn, want, what: str, calls: int = 100) -> None:
+    """``calls`` calls of ``fn`` (K3 or K5), each output held to the plain
+    version's ``want``."""
+    w, n = merge_out(want)
+    bad = 0
+    for _ in range(calls):
+        g, m = merge_out(fn())
+        bad += int(m != n or not all(
+            x is None or torch.equal(x[:n], y[:n]) for x, y in zip(g, w)))
+    print(f"merge stress, {what}: {calls} calls, {bad} differ from the "
+          f"plain version", flush=True)
+    check(bad == 0, f"merge stress at {what}: {bad} of {calls} calls differ")
+
+
+def merge_layout_checks(torch, rng, M, dev="cuda"):
+    """K5 and K3 against their plain versions at every layout of
+    merge_layouts (around the tile of ops/merge.MERGE_TILE), with u32 and
+    u64 keys, with and without coordinates; K3 over a table with 37
+    entries of garbage behind its live prefix (A) and random counts, at
+    the layout's capacity.  Yields (wrapper name, mismatches, max abs
+    err) for each call and prints one JSON line per layout."""
+    for case, av, bv, cap in merge_layouts(rng, M.MERGE_TILE):
+        for wide in (False, True):
+            a = torch.from_numpy(merge_keys(av, wide)).to(dev)
+            b = torch.from_numpy(merge_keys(bv, wide)).to(dev)
+            pad = torch.from_numpy(merge_keys(rng.integers(
+                0, 1 << 32, 37, dtype=np.uint64), wide)).to(dev)
+            t_key = torch.cat([a, pad])
+            t_cnt = torch.from_numpy(rng.integers(
+                -(1 << 31), 1 << 31, t_key.numel()).astype(np.int32)).to(dev)
+            for with_crd in (False, True):
+                ac, bc, tc = (torch.from_numpy(coords(rng, n)).to(dev)
+                              if with_crd else None
+                              for n in (a.numel(), b.numel(), 37))
+                t_crd = None if ac is None else torch.cat([ac, tc])
+                k3 = (t_key, t_cnt, t_crd, a.numel(), b, bc,
+                      cap or a.numel() + b.numel())
+                for fn, args in ((M.merge_sorted, (a, ac, b, bc)),
+                                 (M.merge_fold, k3)):
+                    ref = getattr(M, fn.__name__ + "_ref")
+                    bad, err, _ = merge_check(torch, fn, ref, args, case)
+                    yield fn.__name__, bad, err
+        print(json.dumps({"merge_layout": case, "na": int(av.size),
+                          "nb": int(bv.size), "capacity": cap,
+                          "mismatches": 0}), flush=True)
+
+
 def merge_kernels_vs_plain(torch, rng, card: str, bounds: Bounds,
-                           n_run: int = 8 << 20,
-                           cap: int = 1 << 26, used: int = 40_000_000,
-                           n_agg: int = 50_000_000, dead: int = 1 << 20):
+                           cap: int = 1 << 26, n_agg: int = 50_000_000,
+                           dead: int = 1 << 20):
     phase("7 K5, K3, K4, K6 vs plain (exact) and timing")
     from kmerutils_tpu_torch.ops import merge as M
     res = {}
 
     def record(name, bad, err, ms, plain_ms, runs, shape, nbytes,
-               library_ms=None):
+               library_ms=None, device_ms=None):
         r = res.setdefault(name, {"mismatches": 0, "max_abs_err": 0,
                                   "ms": [], "plain_ms": [], "bound_ms": [],
-                                  "library_ms": []})
+                                  "library_ms": [], "device_ms": []})
         r["mismatches"] += bad
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"].append(ms)
         r["plain_ms"].append(plain_ms)
         r["bound_ms"].append(bounds.bytes(nbytes)[0])
         r["library_ms"].append(library_ms)
+        r["device_ms"].append(device_ms)
         print(json.dumps({"timing": name, "shape": shape, "mismatches": bad,
                           "ms_plain_kern_kern_plain": runs, "bytes": nbytes,
                           "bound_ms": r["bound_ms"][-1],
+                          "device_ms": device_ms,
                           "library_ms": library_ms, "card": card}),
               flush=True)
         check(bad == 0 and err == 0, f"{name} != plain at {shape}")
@@ -841,49 +1066,26 @@ def merge_kernels_vs_plain(torch, rng, card: str, bounds: Bounds,
         del cat
         return ms
 
-    for wide, with_crd in ((False, False), (True, True)):
-        a_key = to_dev(torch, sorted_keys(rng, n_run, wide, 0.3))
-        b_key = to_dev(torch, sorted_keys(rng, n_run, wide, 0.3))
-        a_crd = to_dev(torch, coords(rng, n_run) if with_crd else None)
-        b_crd = to_dev(torch, coords(rng, n_run) if with_crd else None)
-        got = M.merge_sorted(a_key, a_crd, b_key, b_crd)
-        want = M.merge_sorted_ref(a_key, a_crd, b_key, b_crd)
-        torch.cuda.synchronize()
-        bad, err = compare(torch, got, want, 2 * n_run)
-        ms, pms, runs = turns(
-            torch, lambda: M.merge_sorted(a_key, a_crd, b_key, b_crd),
-            lambda: M.merge_sorted_ref(a_key, a_crd, b_key, b_crd))
-        ent = a_key.element_size() + (8 if with_crd else 0)
-        record("merge_sorted", bad, err, ms, pms, runs,
-               f"2 x {n_run} {'u64' if wide else 'u32'} keys"
-               f"{' + coords' if with_crd else ''}", 4 * n_run * ent,
-               sort_ms(a_key, b_key))
-        del a_key, b_key, a_crd, b_crd, got, want
-
-    for wide, with_crd in ((False, False), (True, True)):
-        t_key = to_dev(torch, np.concatenate([
-            sorted_keys(rng, used, wide, 0.2),
-            np.zeros(cap - used, np.int64 if wide else np.int32)]))
-        t_cnt = to_dev(torch, rng.integers(1, 100, size=cap).astype(
-            np.int32))
-        t_crd = to_dev(torch, coords(rng, cap) if with_crd else None)
-        b_key = to_dev(torch, sorted_keys(rng, n_run, wide, 0.5))
-        b_crd = to_dev(torch, coords(rng, n_run) if with_crd else None)
-        args = (t_key, t_cnt, t_crd, used, b_key, b_crd, cap)
-        got = M.merge_fold(*args)
-        want = M.merge_fold_ref(*args)
-        torch.cuda.synchronize()
-        check(got[3] == want[3] == used + n_run, "merge_fold length")
-        bad, err = compare(torch, got[:3], want[:3], got[3])
-        ms, pms, runs = turns(torch, lambda: M.merge_fold(*args),
-                              lambda: M.merge_fold_ref(*args))
-        ent = t_key.element_size() + (8 if with_crd else 0)
-        record("merge_fold", bad, err, ms, pms, runs,
-               f"{n_run} into {used} of {cap}, {'u64' if wide else 'u32'} "
-               f"keys{' + coords' if with_crd else ''}",
-               used * (ent + 4) + n_run * ent + (used + n_run) * (ent + 4),
-               sort_ms(t_key[:used], b_key))
-        del t_key, t_cnt, t_crd, b_key, b_crd, args, got, want
+    for name, what, args, nbytes in merge_shapes(torch, rng):
+        fn, ref = getattr(M, name), getattr(M, name + "_ref")
+        bad, err, want = merge_check(torch, fn, ref, args, what)
+        kern = functools.partial(fn, *args)
+        ms, pms, runs = turns(torch, kern, functools.partial(ref, *args))
+        prof = merge_profile(torch, kern)
+        print(json.dumps({"timing": name, "shape": what, "profile": prof,
+                          "card": card}), flush=True)
+        if name == "merge_sorted" and not res.get(name):
+            merge_stress(torch, kern, want, what)   # the --count variant
+        keys = (args[0], args[2]) if name == "merge_sorted" else \
+            (args[0][:args[3]], args[4])
+        record(name, bad, err, ms, pms, runs, what, nbytes, sort_ms(*keys),
+               prof["device_ms"])
+        del args, kern, want, keys
+    torch.cuda.empty_cache()
+    for name, bad, err in merge_layout_checks(torch, rng, M):
+        r = res[name]
+        r["mismatches"] += bad
+        r["max_abs_err"] = max(r["max_abs_err"], err)
 
     from kmerutils_tpu_torch import _build
     from kmerutils_tpu_torch.profile_sketch import profile
@@ -1772,7 +1974,7 @@ def rest_of_datasketcher(torch, rng, tmp: str, card: str, dev, fq8: str,
 
 
 # ---------------------------------------------------------------------------
-# --baseline: K1/K2 and K4/K6 of this tree against another tree's, in turns
+# --baseline: K1-K7 of this tree against another tree's, in turns
 # ---------------------------------------------------------------------------
 
 def load_port(root: str, name: str = "baseline_port"):
@@ -1792,7 +1994,7 @@ def load_port(root: str, name: str = "baseline_port"):
 
 def against_baseline(torch, rng, root: str, card: str, ipd: dict,
                      m: int = 200) -> None:
-    phase(f"A/B: K1/K2, K4/K6 and K7 of this tree against the port in "
+    phase(f"A/B: K1/K2, K3-K6 and K7 of this tree against the port in "
           f"{root}")
     from kmerutils_tpu_torch import roofline
     from kmerutils_tpu_torch.ops import tournament as T
@@ -1834,6 +2036,7 @@ def against_baseline(torch, rng, root: str, card: str, ipd: dict,
                           "card": card}), flush=True)
         del args, want, fns
         torch.cuda.empty_cache()
+    merge_against_baseline(torch, rng, card, bounds, order)
     aggregate_against_baseline(torch, rng, card, bounds, order)
     k7_against_baseline(torch, rng, card, bounds, order)
     mains = {"baseline": importlib.import_module(
@@ -1848,6 +2051,34 @@ def against_baseline(torch, rng, root: str, card: str, ipd: dict,
             res[k].append(cli_profile(mains[k], argv))
     print(json.dumps({"timing": "datasketcher_b512_k8", **res,
                       "card": card}), flush=True)
+
+
+def merge_against_baseline(torch, rng, card: str, bounds: Bounds,
+                           order) -> None:
+    """K3/K5 of the baseline tree (imported as baseline_port) and of this
+    tree through their public wrappers at phase 7's four timed shapes: both
+    equal to the plain version, then CUDA-event ms and profiler device ms
+    in turns."""
+    from kmerutils_tpu_torch.ops import merge as M
+    mods = {"baseline": importlib.import_module("baseline_port.ops.merge"),
+            "this": M}
+    for name, what, args, nbytes in merge_shapes(torch, rng):
+        fns = {k: getattr(mod, name) for k, mod in mods.items()}
+        for k, fn in fns.items():
+            merge_check(torch, fn, getattr(M, name + "_ref"), args,
+                        f"{what} ({k})")
+        calls = {k: functools.partial(fn, *args) for k, fn in fns.items()}
+        res = {k: {"ms": [], "device_ms": []} for k in fns}
+        for k in order:
+            res[k]["ms"].append(cuda_ms(torch, calls[k], 10))
+        for k in order:
+            res[k]["device_ms"].append(
+                merge_profile(torch, calls[k])["device_ms"])
+        print(json.dumps({"timing": name, "shape": what, **res,
+                          "bound_ms": bounds.bytes(nbytes)[0],
+                          "card": card}), flush=True)
+        del args, fns, calls
+        torch.cuda.empty_cache()
 
 
 def aggregate_against_baseline(torch, rng, card: str, bounds: Bounds,
@@ -1890,8 +2121,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Smoke test of the PyTorch + CUDA port on one GPU.")
     ap.add_argument("--baseline", metavar="ROOT", default=None,
-                    help="compare K1/K2, K4/K6 and K7 with the port in this "
-                         "tree instead of running the smoke test")
+                    help="compare K1/K2, K3-K6 and K7 with the port in "
+                         "this tree instead of running the smoke test")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1969,6 +2200,9 @@ def main(argv=None) -> int:
             "ms_each_shape": r["ms"], "plain_ms_each_shape": r["plain_ms"],
             "bound_ms_each_shape": r["bound_ms"],
             "library_ms_each_shape": r["library_ms"]})
+        if k in ("K3", "K5"):   # profiler device time of one wrapper call
+            kernels[-1].update(device_ms=r["device_ms"][0],
+                               device_ms_each_shape=r["device_ms"])
     kernels.append({
         "name": "compact_live", "route": "cuda", "source": MERGE_SOURCE,
         "replaces": K7_TPU, "launches": k7["launches"],

@@ -16,6 +16,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,6 +24,7 @@ import time
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC_DIR), "..", "build", "kernels")
+SWEEP_DIR = os.path.join(os.path.dirname(BUILD_DIR), "sweep")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -84,6 +86,8 @@ def declare_merge(lib) -> None:
     lib.aggregate_scratch_words.argtypes = [ll]
     lib.aggregate_tile_entries.restype = ci
     lib.aggregate_tile_entries.argtypes = []
+    lib.merge_tile_entries.restype = ci
+    lib.merge_tile_entries.argtypes = []
     lib.launch_merge.restype = ci
     lib.launch_merge.argtypes = [ci, ci, ci, vp, vp, vp, ll, vp, vp, ll,
                                  vp, vp, vp, ll, vp]
@@ -151,6 +155,57 @@ def _compile(path: str) -> None:
                 os.remove(obj)
     build_info.update(seconds=time.perf_counter() - t0, path=path,
                       output="".join(output))
+
+
+def build_variants(configs, defines) -> dict:
+    """{config: (ctypes library, nvcc output)}: csrc/merge.cu built once per
+    configuration with the -D flags ``defines(config)`` into build/sweep/
+    (one nvcc each, all started together), its entry points declared.  For
+    the tile sweeps (sweep_compact.py, sweep_merge.py)."""
+    os.makedirs(SWEEP_DIR, exist_ok=True)
+    src = os.path.join(CSRC_DIR, "merge.cu")
+    jobs = []
+    for cfg in configs:
+        flags = defines(cfg)
+        so = os.path.join(SWEEP_DIR, "merge" + "".join(
+            "_" + f.split("=")[1] for f in flags) + ".so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", *flags, "-o", so, src]
+        jobs.append((cfg, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    libs = {}
+    for cfg, so, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {cfg}:\n{out}")
+        lib = ctypes.CDLL(so)
+        declare_merge(lib)
+        libs[cfg] = (lib, out)
+    return libs
+
+
+def ptxas_registers(output: str, kernel: str) -> dict:
+    """{key: (registers, spill bytes)} of the kernels whose mangled names
+    match the regular expression ``kernel`` in nvcc's -Xptxas -v output,
+    keyed by its first group."""
+    out, cur = {}, None
+    for line in output.splitlines():
+        m = re.search(r"(?:entry function|properties for) '?(\w+)", line)
+        if m:
+            cur = re.search(kernel, m.group(1))
+            continue
+        if cur is None:
+            continue
+        regs, spill = out.get(cur.group(1), (0, 0))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = int(m.group(1))
+        out[cur.group(1)] = (regs, spill)
+    return out
 
 
 def load():

@@ -14,18 +14,35 @@
 // Keys compare as unsigned words: none of the TPU kernels' sign flips, key
 // bias, reversed B side or aligned DMA windows is needed here.
 //
-// Merge (K3, K5): stable, A first on ties.  Grid over output tiles of
-// kTile entries.  Each block finds its own merge-path split of A and B at
-// the tile's two output diagonals (a binary search in device memory), loads
-// the tile's A and B keys into shared memory, and each thread merges kIpt
-// outputs from its own split in shared memory.  The block then writes keys,
-// counts and coordinates coalesced, gathering payloads by source index.
-// K3 is this kernel with a count word on the A side (the table) and an
-// implicit count of 1 on the B side (the batch run); only the first n_out
-// outputs are written, so merged entries past the table's capacity (the
-// largest keys) are dropped.  K5 has no count word.  The output never
-// aliases the inputs (a block would otherwise overwrite A entries another
-// block has yet to read): the table is folded into a second buffer.
+// Merge (K3, K5): stable, A first on ties, each side's equal keys in their
+// order.  One block per output tile of kMergeTile = 256 x 16 entries.  The
+// tile's splits of A and B at its two output diagonals (merge path: the
+// number of A entries among the first d outputs) come from two warps, one
+// per diagonal, each in a few round trips to device memory: a round tests
+// 32 evenly spaced points of the remaining range at once (one a lane, both
+// loads issued together) and a ballot narrows the range 32-fold, so 5
+// rounds at 8 Mi entries and 6 at 48 M, where a binary search by one
+// thread waits on ~23-26 dependent loads with the rest of the block idle.
+// (More points a round save a round but each costs two scattered 32-byte
+// sectors: 128 a round made the two searches move up to twice a K5 tile's
+// bytes and cost 5-24 % more time, PERF.md section 6.)  The tile's A
+// keys and then its B keys are loaded striped (every load issued before
+// any is stored) into a shared buffer padded by one word per 128 bytes;
+// each thread finds its own split there (a binary search over the padded
+// buffer, which keeps the threads' probes 8 or 16 entries apart on
+// distinct banks) and merges its 16 outputs into registers, writing their
+// 16-bit source indices to a second shared buffer as it goes.  The outputs
+// are then staged in order in the key buffer and stored a full warp per
+// 32 consecutive entries (128 or 256 bytes per instruction); counts (K3)
+// and coordinates are gathered by source index from the tile's two
+// contiguous input windows, half a tile's worth of loads in flight at a
+// time.  K3 is this kernel with a count word on the A
+// side (the table) and an implicit count of 1 on the B side (the batch
+// run); only the first n_out outputs are written, so merged entries past
+// the table's capacity (the largest keys) are dropped.  K5 has no count
+// word.  The output never aliases the inputs (a block would otherwise
+// overwrite A entries another block has yet to read): the table is folded
+// into a second buffer.
 //
 // Aggregation (K4, K6): one entry per run of equal keys, count = the sum of
 // the run's counts saturated at 2^32 - 1, coordinate = the run's unsigned
@@ -116,12 +133,16 @@
 // butterfly concentrator and aligned DMA windows have no counterpart here.
 //
 // What bounds them on this card: memory traffic.  Per entry the merge reads
-// and writes the key, count and coordinate once (plus a log2(n) binary
-// search per block): at 3.35 TB/s an 8 Mi-entry batch folded into a 40
-// M-entry table with u32 keys and counts moves about 0.77 GB, ~0.23 ms.
-// Aggregation reads keys and counts twice (summary and emit), coordinates
-// once, and writes each kept run once: 50 M entries with u32 keys, counts
-// and coordinates and 19 M kept runs move ~1.5 GB, ~0.45 ms.  Neither pass
+// and writes the key, count and coordinate once: at 3.35 TB/s an 8
+// Mi-entry batch folded into a 40 M-entry table with u32 keys and counts
+// moves about 0.74 GB, ~0.22 ms, and two 8 Mi-entry runs of u32 keys 134
+// MB, ~0.04 ms.  A block moves its tile's bytes only between its split
+// search and its merge; the blocks resident on an SM (registers and shared
+// memory allow several) overlap those phases, and the few round trips of
+// the warp search keep a block's idle head short.  Aggregation reads keys
+// and counts twice (summary and emit), coordinates once, and writes each
+// kept run once: 50 M entries with u32 keys, counts and coordinates and 19
+// M kept runs move ~1.5 GB, ~0.45 ms.  Neither pass
 // streams at the card's full rate (PERF.md gives each kernel's time): a
 // block loads its tile, then scans it with the memory idle, and the two or
 // three blocks resident on an SM (registers) overlap only in part.  K7
@@ -143,25 +164,46 @@
 #ifndef KMER_LIVE_IPT
 #define KMER_LIVE_IPT 16
 #endif
+// K3/K5's outputs per thread; built with other values only by
+// kmerutils_tpu_torch/sweep_merge.py, which times them.
+#ifndef KMER_MERGE_IPT
+#define KMER_MERGE_IPT 16
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kIpt = 8;
-constexpr int kTile = kThreads * kIpt;
 constexpr int kScanThreads = 1024;
 constexpr unsigned long long kNoCoord = ~0ull;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// Number of A elements among the first d outputs of the stable (A first)
-// merge of sorted a[0, na) and b[0, nb): the largest x with a[x-1] <= b[d-x].
-template <typename K, typename I>
-__device__ __forceinline__ I merge_path(const K* a, I na, const K* b, I nb,
-                                        I d) {
-  I lo = d > nb ? d - nb : 0;
-  I hi = d < na ? d : na;
+// Element e of a shared buffer of 2-, 4- or 8-byte words, padded by one
+// word per 128 bytes: a warp reading or writing 32 consecutive elements,
+// or one element at each of 32 positions a fixed stride of 8 or 16
+// elements apart, hits 32 different banks.
+template <typename T>
+__host__ __device__ constexpr int staged(int e) {
+  return e + e / (128 / (int)sizeof(T));
+}
+
+// ---------------------------------------------------------------------------
+// merge (K3, K5)
+// ---------------------------------------------------------------------------
+
+constexpr int kMergeIpt = KMER_MERGE_IPT;
+constexpr int kMergeTile = kThreads * kMergeIpt;
+static_assert(kMergeTile <= 65536, "source indices are staged as 16 bits");
+
+// Number of A entries among the first d outputs of the stable (A first)
+// merge of sorted a[0, na) and b[0, nb): the largest x in [max(0, d - nb),
+// min(d, na)] that is the low end or has a_le_b(x) (a[x-1] <= b[d-x]).
+template <typename Le>
+__device__ __forceinline__ int merge_path(int na, int nb, int d, Le a_le_b) {
+  int lo = d > nb ? d - nb : 0;
+  int hi = d < na ? d : na;
   while (lo < hi) {
-    const I mid = (lo + hi + 1) >> 1;
-    if (a[mid - 1] <= b[d - mid]) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (a_le_b(mid)) {
       lo = mid;
     } else {
       hi = mid - 1;
@@ -170,6 +212,41 @@ __device__ __forceinline__ I merge_path(const K* a, I na, const K* b, I nb,
   return lo;
 }
 
+// merge_path in device memory by one warp, in a few round trips instead of
+// log2(n): each round lane l tests the point lo + (l + 1) s (both loads
+// issued before the test), s the least step with which the 32 points reach
+// hi, the ballot counts the points that pass (a prefix, since the test is
+// monotone in x), and the range shrinks to the s - 1 points after the last
+// one that passes: log(n) / 5 rounds.
+template <typename K>
+__device__ long long warp_merge_path(const K* __restrict__ a, long long na,
+                                     const K* __restrict__ b, long long nb,
+                                     long long d, int lane) {
+  long long lo = d > nb ? d - nb : 0;
+  long long hi = d < na ? d : na;
+  while (lo < hi) {
+    const long long s = (hi - lo + 31) / 32;
+    const long long x = lo + (lane + 1) * s;
+    const bool in = x <= hi;
+    const K av = in ? a[x - 1] : K(0);
+    const K bv = in ? b[d - x] : K(0);
+    const int c = __popc(__ballot_sync(kFull, in && av <= bv));
+    const long long top = lo + (c + 1) * s - 1;
+    lo += c * s;
+    hi = top < hi ? top : hi;
+  }
+  return lo;
+}
+
+// Bytes of dynamic shared memory of merge_kernel: the tile's keys (then
+// its outputs) and, with payloads, their 16-bit source indices.
+template <typename K, bool kSrc>
+constexpr int merge_smem_bytes() {
+  return (int)sizeof(K) * staged<K>(kMergeTile) +
+         (kSrc ? 2 * staged<uint16_t>(kMergeTile) : 0);
+}
+
+// One output tile [d0, d0 + kMergeTile) per block; see the header.
 template <typename K, bool kCnt, bool kCrd>
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(const K* __restrict__ a_key, const uint32_t* __restrict__ a_cnt,
@@ -177,48 +254,108 @@ merge_kernel(const K* __restrict__ a_key, const uint32_t* __restrict__ a_cnt,
              const K* __restrict__ b_key, const uint64_t* __restrict__ b_crd,
              long long nb, K* __restrict__ o_key, uint32_t* __restrict__ o_cnt,
              uint64_t* __restrict__ o_crd, long long n_out) {
-  __shared__ K s_key[kTile];
-  __shared__ int s_src[kTile];
+  constexpr bool kSrc = kCnt || kCrd;   // payloads gathered by source
+  extern __shared__ __align__(16) unsigned char merge_smem[];
+  K* s_key = (K*)merge_smem;
+  uint16_t* s_src = (uint16_t*)(s_key + staged<K>(kMergeTile));
   __shared__ long long s_split[2];
   const int tid = (int)threadIdx.x;
-  const long long d0 = (long long)blockIdx.x * kTile;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long d0 = (long long)blockIdx.x * kMergeTile;
   const long long total = na + nb;
-  const long long d1 = d0 + kTile < total ? d0 + kTile : total;
-  if (tid < 2) {
-    s_split[tid] = merge_path<K, long long>(a_key, na, b_key, nb,
-                                            tid == 0 ? d0 : d1);
+  const long long d1 = d0 + kMergeTile < total ? d0 + kMergeTile : total;
+  if (warp < 2) {
+    const long long x =
+        warp_merge_path<K>(a_key, na, b_key, nb, warp ? d1 : d0, lane);
+    if (lane == 0) s_split[warp] = x;
   }
   __syncthreads();
   const long long a0 = s_split[0];
   const long long b0 = d0 - a0;
-  const int la = (int)(s_split[1] - a0);
   const int n = (int)(d1 - d0);
+  const int la = (int)(s_split[1] - a0);
   const int lb = n - la;
-  for (int j = tid; j < n; j += kThreads) {
-    s_key[j] = j < la ? a_key[a0 + j] : b_key[b0 + (j - la)];
+  {  // the tile's A keys, then its B keys: striped, all loads issued first
+    K v[kMergeIpt];
+#pragma unroll
+    for (int r = 0; r < kMergeIpt; ++r) {
+      const int j = r * kThreads + tid;
+      v[r] = j < la ? a_key[a0 + j] : j < n ? b_key[b0 + (j - la)] : K(0);
+    }
+#pragma unroll
+    for (int r = 0; r < kMergeIpt; ++r) {
+      const int j = r * kThreads + tid;
+      if (j < n) s_key[staged<K>(j)] = v[r];
+    }
   }
   __syncthreads();
-  // this thread's outputs [dl, dl + kIpt) of the tile
-  const int dl = tid * kIpt < n ? tid * kIpt : n;
-  int ia = merge_path<K, int>(s_key, la, s_key + la, lb, dl);
+  // this thread's outputs [dl, dl + m) of the tile, merged into registers
+  const int dl = tid * kMergeIpt < n ? tid * kMergeIpt : n;
+  const int m = n - dl < kMergeIpt ? n - dl : kMergeIpt;
+  int ia = merge_path(la, lb, dl, [&](int x) {
+    return s_key[staged<K>(x - 1)] <= s_key[staged<K>(la + dl - x)];
+  });
   int ib = dl - ia;
-  for (int i = 0; i < kIpt && dl + i < n; ++i) {
-    const bool take_a = ia < la && (ib >= lb || s_key[ia] <= s_key[la + ib]);
-    s_src[dl + i] = take_a ? ia++ : la + ib++;
+  K ka = ia < la ? s_key[staged<K>(ia)] : K(0);
+  K kb = ib < lb ? s_key[staged<K>(la + ib)] : K(0);
+  K out[kMergeIpt];
+#pragma unroll
+  for (int i = 0; i < kMergeIpt; ++i) {
+    const bool take_a = ib >= lb || (ia < la && ka <= kb);
+    out[i] = take_a ? ka : kb;
+    if (kSrc && i < m) {  // s_src is not read before the next barrier
+      s_src[staged<uint16_t>(dl + i)] = (uint16_t)(take_a ? ia : la + ib);
+    }
+    // advance the side taken and load its next key: one shared load
+    ia += take_a ? 1 : 0;
+    ib += take_a ? 0 : 1;
+    const int next = take_a ? ia : la + ib;
+    const K k = (take_a ? ia < la : ib < lb) ? s_key[staged<K>(next)] : K(0);
+    ka = take_a ? k : ka;
+    kb = take_a ? kb : k;
+  }
+  __syncthreads();  // every key of the tile has been read
+  // outputs staged in order, then stored a warp per 32 consecutive
+  // entries
+#pragma unroll
+  for (int i = 0; i < kMergeIpt; ++i) {
+    if (i < m) s_key[staged<K>(dl + i)] = out[i];
   }
   __syncthreads();
   const long long room = n_out - d0;
   const int n_write = room < n ? (int)room : n;
-  for (int j = tid; j < n_write; j += kThreads) {
-    const int s = s_src[j];
-    const long long o = d0 + j;
-    o_key[o] = s_key[s];
-    if (s < la) {
-      if (kCnt) o_cnt[o] = a_cnt[a0 + s];
-      if (kCrd) o_crd[o] = a_crd[a0 + s];
-    } else {
-      if (kCnt) o_cnt[o] = 1u;
-      if (kCrd) o_crd[o] = b_crd[b0 + (s - la)];
+#pragma unroll
+  for (int r = 0; r < kMergeIpt; ++r) {
+    const int j = r * kThreads + tid;
+    if (j < n_write) o_key[d0 + j] = s_key[staged<K>(j)];
+  }
+  if (!kSrc) return;
+  // payloads gathered from the tile's two input windows, in two halves
+  // (fewer registers): each half's loads issued before its stores
+  constexpr int kHalf = kMergeIpt / 2;
+#pragma unroll
+  for (int h = 0; h < kMergeIpt; h += kHalf) {
+    uint32_t cv[kHalf];
+    uint64_t rv[kHalf];
+#pragma unroll
+    for (int r = 0; r < kHalf; ++r) {
+      const int j = (h + r) * kThreads + tid;
+      const int s = j < n_write ? (int)s_src[staged<uint16_t>(j)] : 0;
+      const bool from_a = s < la;
+      if (kCnt) cv[r] = j < n_write && from_a ? a_cnt[a0 + s] : 1u;
+      if (kCrd) {
+        rv[r] = j >= n_write ? 0ull : from_a ? a_crd[a0 + s]
+                                             : b_crd[b0 + (s - la)];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kHalf; ++r) {
+      const int j = (h + r) * kThreads + tid;
+      if (j < n_write) {
+        if (kCnt) o_cnt[d0 + j] = cv[r];
+        if (kCrd) o_crd[d0 + j] = rv[r];
+      }
     }
   }
 }
@@ -232,7 +369,6 @@ constexpr int kAggIpt = 16;                      // entries per thread
 constexpr int kSpan = 32 * kAggIpt;              // consecutive entries a warp
 constexpr int kAggTile = kThreads * kAggIpt;     // entries per tile
 constexpr int kStage = kSpan + kSpan / 16;       // 8-byte words a warp stages
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // Per-tile scratch, laid out as consecutive arrays of n_tiles words (int64
 // words, used as uint64_t where noted), then offs[n_tiles + 1].
@@ -308,14 +444,6 @@ __device__ __forceinline__ Agg agg_shfl_up(Agg a, int d) {
   x.sum = __shfl_up_sync(kFull, a.sum, d);
   x.mn = kMin ? __shfl_up_sync(kFull, a.mn, d) : kNoCoord;
   return x;
-}
-
-// Element e of a warp's staging buffer of 4- or 8-byte words, padded by
-// one word per 128 bytes, so that both the striped writes (e = 32 r +
-// lane) and the blocked reads (e = kAggIpt lane + i) hit 32 banks.
-template <typename T>
-__device__ __forceinline__ int staged(int e) {
-  return e + e / (128 / (int)sizeof(T));
 }
 
 // v[r] holds the warp's entry 32 r + lane (a coalesced load); returns with
@@ -883,9 +1011,16 @@ int merge_typed(const void* a_key, const void* a_cnt, const void* a_crd,
                 long long na, const void* b_key, const void* b_crd,
                 long long nb, void* o_key, void* o_cnt, void* o_crd,
                 long long n_out, cudaStream_t st) {
-  const long long blocks = (n_out + kTile - 1) / kTile;
+  const long long blocks = (n_out + kMergeTile - 1) / kMergeTile;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
-  merge_kernel<K, kCnt, kCrd><<<(unsigned)blocks, kThreads, 0, st>>>(
+  constexpr int smem = merge_smem_bytes<K, kCnt || kCrd>();
+  if (smem > 48 * 1024) {  // only tiles larger than the kernels' own
+    const int rc = (int)cudaFuncSetAttribute(
+        merge_kernel<K, kCnt, kCrd>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != 0) return rc;
+  }
+  merge_kernel<K, kCnt, kCrd><<<(unsigned)blocks, kThreads, smem, st>>>(
       (const K*)a_key, (const uint32_t*)a_cnt, (const uint64_t*)a_crd, na,
       (const K*)b_key, (const uint64_t*)b_crd, nb, (K*)o_key,
       (uint32_t*)o_cnt, (uint64_t*)o_crd, n_out);
@@ -962,6 +1097,9 @@ extern "C" long long aggregate_scratch_words(long long n) {
 
 // Entries per tile of K4/K6 (ops/merge.py's AGG_TILE).
 extern "C" int aggregate_tile_entries() { return kAggTile; }
+
+// Outputs per tile of K3/K5 (ops/merge.py's MERGE_TILE).
+extern "C" int merge_tile_entries() { return kMergeTile; }
 
 // K3 (has_cnt = 1) and K5 (has_cnt = 0): stable merge of a[0, na) and
 // b[0, nb), A first on ties; writes the first n_out <= na + nb outputs.

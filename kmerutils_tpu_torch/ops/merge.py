@@ -41,6 +41,9 @@ import torch
 from .. import _build
 from .bitops import M32, flip64
 
+# outputs per tile of the K3/K5 kernel (kMergeTile of csrc/merge.cu, which
+# reports it as merge_tile_entries)
+MERGE_TILE = 4096
 # entries per tile of the K4/K6 kernels (kAggTile of csrc/merge.cu, which
 # reports it as aggregate_tile_entries); runs are joined across tiles
 AGG_TILE = 4096
@@ -98,14 +101,16 @@ _checked_lib = None
 
 def _load():
     """The kernels' library (_build.load), its tile sizes checked once
-    against AGG_TILE and LIVE_TILE: a mismatch raises."""
+    against MERGE_TILE, AGG_TILE and LIVE_TILE: a mismatch raises."""
     global _checked_lib
     lib = _build.load()
     if lib is not _checked_lib:
-        tiles = (lib.aggregate_tile_entries(), lib.compact_tile_entries())
-        if tiles != (AGG_TILE, LIVE_TILE):
-            raise RuntimeError(f"csrc/merge.cu tiles (K4/K6, K7) {tiles} != "
-                               f"ops/merge.py's {(AGG_TILE, LIVE_TILE)}")
+        tiles = (lib.merge_tile_entries(), lib.aggregate_tile_entries(),
+                 lib.compact_tile_entries())
+        if tiles != (MERGE_TILE, AGG_TILE, LIVE_TILE):
+            raise RuntimeError(f"csrc/merge.cu tiles (K3/K5, K4/K6, K7) "
+                               f"{tiles} != ops/merge.py's "
+                               f"{(MERGE_TILE, AGG_TILE, LIVE_TILE)}")
         _checked_lib = lib
     return lib
 

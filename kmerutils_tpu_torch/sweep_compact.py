@@ -25,9 +25,6 @@ import ctypes
 import itertools
 import json
 import math
-import os
-import re
-import subprocess
 import sys
 import time
 
@@ -38,7 +35,6 @@ from . import _build, roofline
 from .ops import merge as M
 from .profile_sketch import card_line
 
-SWEEP_DIR = os.path.join(os.path.dirname(_build.BUILD_DIR), "sweep")
 CONFIGS = tuple((t, i) for t, i in itertools.product((128, 256, 512),
                                                    (4, 8, 16, 32))
                 if t * i <= 8192)
@@ -77,53 +73,13 @@ def bench_batch(seed: int, n: int = 1024, length: int = 6000, dev="cuda"):
     return pack_codes(codes, np.full(n, length, np.int32), device=dev)
 
 
-def registers(output: str) -> dict:
-    """{narr: (registers, spill bytes)} of compact_kernel<narr> in nvcc's
-    -Xptxas -v output."""
-    out, cur = {}, None
-    for line in output.splitlines():
-        m = re.search(r"(?:entry function|properties for) '?(\w+)", line)
-        if m:
-            cur = re.search(r"compact_kernelILi(\d)E", m.group(1))
-            continue
-        if cur is None:
-            continue
-        narr = int(cur.group(1))
-        regs, spill = out.get(narr, (0, 0))
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spill = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            regs = int(m.group(1))
-        out[narr] = (regs, spill)
-    return out
-
-
 def build_all(configs) -> dict:
-    """{config: (ctypes library, registers)}, one nvcc per configuration,
-    all started together."""
-    os.makedirs(SWEEP_DIR, exist_ok=True)
-    src = os.path.join(_build.CSRC_DIR, "merge.cu")
-    jobs = []
-    for threads, ipt in configs:
-        so = os.path.join(SWEEP_DIR, f"k7_{threads}_{ipt}.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-               f"-DKMER_LIVE_THREADS={threads}", f"-DKMER_LIVE_IPT={ipt}",
-               "-o", so, src]
-        jobs.append(((threads, ipt), so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    libs = {}
-    for cfg, so, proc in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {cfg}:\n{out}")
-        lib = ctypes.CDLL(so)
-        _build.declare_merge(lib)
-        libs[cfg] = (lib, registers(out))
-    return libs
+    """{config: (ctypes library, {narr: (registers, spill bytes)} of
+    compact_kernel<narr>)}, one nvcc per configuration."""
+    libs = _build.build_variants(configs, lambda c: [
+        f"-DKMER_LIVE_THREADS={c[0]}", f"-DKMER_LIVE_IPT={c[1]}"])
+    return {cfg: (lib, _build.ptxas_registers(out, r"compact_kernelILi(\d)E"))
+            for cfg, (lib, out) in libs.items()}
 
 
 def launch_loop_ms(lib, arrs, iters: int) -> float:

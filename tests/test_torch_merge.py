@@ -17,6 +17,9 @@ kernels' tile (chip_smoke.agg_layouts); here the plain versions meet a
 numpy oracle at the same layouts.
 """
 
+import os
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -353,6 +356,117 @@ def test_aggregate_refs_match_numpy_oracle(layout, wide):
             if w is not None:
                 np.testing.assert_array_equal(g[:m].numpy(), w)
                 assert (g[m:] == -1).all()
+
+
+def straddling_runs(rng, tile: int, at: int):
+    """u32 keys (a third >= 2^31) of two sorted runs whose stable merge
+    has one key repeated 50 times in A then 40 times in B across output
+    diagonal ``tile``, ``at`` entries after the repeat's start, distinct
+    keys before and after it."""
+    low = np.sort(rng.choice(np.arange(1, 1 << 31, 7, dtype=np.uint64),
+                             tile - at + 100, replace=False))
+    low[::3] += np.uint64(1 << 31) - np.uint64(1 << 28)
+    low = np.sort(low).astype(np.uint32)
+    k = low[tile - at]
+    before, after = low[: tile - at], low[tile - at + 1:]
+    a_of = rng.random(low.size) < 0.5
+    a = np.sort(np.concatenate([before[a_of[: before.size]], [k] * 50,
+                                after[a_of[-after.size:]]])).astype(np.uint32)
+    b = np.sort(np.concatenate([before[~a_of[: before.size]], [k] * 40,
+                                after[~a_of[-after.size:]]])).astype(np.uint32)
+    return a, b
+
+
+def test_merge_sorted_straddling_a_tile_matches_jax():
+    """Equal keys from both runs across the port's tile diagonal, with
+    coordinates: the JAX kernel (interpret mode) gives the same keys entry
+    by entry and the same (key, coordinate) entries.  Its bitonic merge
+    orders the payloads of equal keys freely, so the entries are compared
+    sorted; the port's order (A's copies first, each side's in order) is
+    pinned against numpy."""
+    rng = np.random.default_rng(8)
+    ka, kb = straddling_runs(rng, M.MERGE_TILE, 30)
+    ca = [rand_words(rng, ka.size), rand_words(rng, ka.size)]
+    cb = [rand_words(rng, kb.size), rand_words(rng, kb.size)]
+    want = mp.merge_sorted_u32((ka, *ca), (kb, *cb), ncmp=1, window=4096)
+    key, crd = M.merge_sorted(port_key(ka, False), port_crd(*ca),
+                              port_key(kb, False), port_crd(*cb))
+    n = ka.size + kb.size
+    got = from_port(key, None, crd, n, False)
+    want = [np.asarray(w)[:n] for w in want]
+    np.testing.assert_array_equal(got[0], want[0])
+    for g, w in zip(sort_rows(got), sort_rows(want)):
+        np.testing.assert_array_equal(g, w)
+    order = np.argsort(np.concatenate([ka, kb]), kind="stable")
+    for g, c in zip(got[1:], (np.concatenate([ca[0], cb[0]]),
+                              np.concatenate([ca[1], cb[1]]))):
+        np.testing.assert_array_equal(g, c[order])
+
+
+MERGE_LAYOUTS = [case[0] for case in chip_smoke.merge_layouts(
+    np.random.default_rng(0), M.MERGE_TILE)]
+
+
+@pytest.mark.parametrize("with_crd", [False, True])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("layout", MERGE_LAYOUTS)
+def test_merge_refs_match_numpy_oracle(layout, wide, with_crd):
+    """merge_sorted_ref and merge_fold_ref (through the wrappers, over a
+    table with garbage behind its live prefix and random counts) against
+    a stable numpy argsort of the concatenated keys, at the layouts on
+    which chip_smoke.py holds the kernels to them: na or nb 0 or 1, n =
+    tile - 1, tile, tile + 1, all of A below or above all of B, one key
+    across tiles, equal-key runs straddling tile diagonals from both
+    sides, keys >= 2^31 and >= 2^63, and K3 capacities that cut the merge
+    mid-tile and at a tile edge."""
+    rng = np.random.default_rng(MERGE_LAYOUTS.index(layout))
+    _, av, bv, cap = next(c for c in chip_smoke.merge_layouts(
+        rng, M.MERGE_TILE) if c[0] == layout)
+    a, b = chip_smoke.merge_keys(av, wide), chip_smoke.merge_keys(bv, wide)
+    na, nb = a.size, b.size
+    u = np.uint64 if wide else np.uint32
+    cat = np.concatenate([a, b])
+    order = np.argsort(cat.view(u), kind="stable")
+    crd = chip_smoke.coords(rng, na + nb) if with_crd else None
+    t = lambda x: None if x is None else torch.from_numpy(x)   # noqa: E731
+
+    key, r = M.merge_sorted(t(a), t(None if crd is None else crd[:na]),
+                            t(b), t(None if crd is None else crd[na:]))
+    np.testing.assert_array_equal(key.numpy(), cat[order])
+    if with_crd:
+        np.testing.assert_array_equal(r.numpy(), crd[order])
+    assert np.all(np.diff(key.numpy().view(u).astype(np.float64)) >= 0)
+
+    pad = 37
+    cnt = rng.integers(-(1 << 31), 1 << 31, na + pad).astype(np.int32)
+    t_key = np.concatenate([a, chip_smoke.merge_keys(rng.integers(
+        0, 1 << 32, pad, dtype=np.uint64), wide)])
+    t_crd = None if crd is None else np.concatenate(
+        [crd[:na], chip_smoke.coords(rng, pad)])
+    capacity = cap or na + nb
+    n_out = min(na + nb, capacity)
+    key, c, r, n = M.merge_fold(t(t_key), t(cnt), t(t_crd), na, t(b),
+                                t(None if crd is None else crd[na:]),
+                                capacity)
+    assert n == n_out and key.numel() == c.numel() == capacity
+    cnts = np.concatenate([cnt[:na], np.ones(nb, np.int32)])
+    np.testing.assert_array_equal(key[:n].numpy(), cat[order][:n])
+    np.testing.assert_array_equal(c[:n].numpy(), cnts[order][:n])
+    if with_crd:
+        np.testing.assert_array_equal(r[:n].numpy(), crd[order][:n])
+        assert r.numel() == capacity
+    else:
+        assert r is None
+
+
+def test_merge_tile_matches_the_kernel_source():
+    # kMergeTile = kThreads (256) x KMER_MERGE_IPT (its default in
+    # csrc/merge.cu); the library reports it on the card
+    src = open(os.path.join(os.path.dirname(M.__file__), "..", "csrc",
+                            "merge.cu")).read()
+    ipt = re.search(r"#define KMER_MERGE_IPT (\d+)", src)
+    assert "constexpr int kThreads = 256;" in src
+    assert 256 * int(ipt.group(1)) == M.MERGE_TILE
 
 
 def test_wrappers_validate_inputs():
