@@ -88,7 +88,29 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    at the bench shape (k=21, one row of ~6.1 M distinct keys) equal to the
    plain path, timed with K2 alone against its plain version; then
    ``-b 512`` again under torch.profiler for its tournament kernels'
-   device time.
+   device time;
+11. the other five families: G1 (``grid_min``, SUPER2's packed-key
+   minimum) and G2 (``grid_max``, SetSketch's hash maximum) of
+   csrc/sketch.cu vs their plain versions on the card, exact, at the bench
+   shape (1024 x 6000, k=8 and k=21, some all-invalid rows), at m = 1, 13,
+   200 and 4096 with random u32 / u64 items (half >= 2^31 / 2^63) and on
+   sketch_collection's one row of ~6.1 M positions (the split grid); each
+   timed with CUDA events against its plain version and its bound
+   (kmerutils_tpu_torch/roofline.py: the integer operations the function
+   needs per (position, slot) pair, G1's cycle walk counted from the
+   data, over the card's issue rate; the kernel's own SASS count beside
+   it); HLL's whole ``sketch_batch`` on the card against the CPU at the
+   bench shape and on a ragged batch (``sketch_collection`` too), k=8 and
+   k=21, registers equal but where the float32 value before the floor
+   lies within 2 ulp of an integer; ``sketch_batch`` of the five families
+   at the bench shape; ``datasketcher -a SUPER / SUPER2 / OPTDENS /
+   REVOPTDENS / HLL -k 8`` through the CLI on ``cuda`` over phase 5's file
+   (G1 / G2 launch counters > 0), each dump read back and 64 sampled reads
+   sketched again on the card, through the plain path on the card (every
+   kernel replaced by its plain version) and read by read on the CPU: the
+   uncast signatures equal (HLL under the floor rule) and the dump equals
+   them cast as the JAX CLI casts them; ``SketcherAA`` of all six families
+   at 1024 x 2000 residues, k=5 and k=9, equal to the plain path.
 
 With ``--baseline ROOT`` (the tree of another commit, e.g. unpacked from
 ``git archive`` into a git-ignored directory) the script runs phases 1-2,
@@ -103,7 +125,7 @@ of each package over phase 5's ONT-like file (wall ms, device ms, the
 tournament kernels' device ms).  It prints one JSON line per result and
 the card line, and no ``ok`` line.
 
-The temporary files of phases 5-10 live in one directory, removed at the
+The temporary files of phases 5-11 live in one directory, removed at the
 end.  The last three lines are the card's name and power limit, the
 kernels' JSON record (each kernel's launches on its path, exactness, ms,
 plain_ms, bound_ms with bound_by, and library_ms or null) and
@@ -1974,6 +1996,371 @@ def rest_of_datasketcher(torch, rng, tmp: str, card: str, dev, fq8: str,
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the other five sketch families and their grid kernels G1 / G2
+# ---------------------------------------------------------------------------
+
+G1_SOURCE = "kmerutils_tpu_torch/csrc/sketch.cu"
+# the JAX package's fused grid reductions that G1 / G2 stand for (no
+# Pallas kernel: XLA fuses them)
+G1_JAX = "kmerutils_tpu/sketch/superminhash.py:95"
+G2_JAX = "kmerutils_tpu/sketch/setsketch.py:58"
+FAMILIES = ("SUPER", "SUPER2", "OPTDENS", "REVOPTDENS", "HLL")
+
+
+class plain_kernels:
+    """Within the block, every kernel wrapper of the sketch path (K1, K2,
+    G1, G2) runs its plain version on the card: the plain path."""
+
+    def __enter__(self):
+        from kmerutils_tpu_torch.ops import sketch_grid as G
+        from kmerutils_tpu_torch.ops import tournament as T
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (T, "weighted_tournament"), (T, "weighted_tournament_u64"),
+            (G, "grid_min"), (G, "grid_max"))]
+        for mod, name, _ in self.saved:
+            setattr(mod, name, getattr(mod, name + "_ref"))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def grid_args(torch, items, valid, m: int, seed: int = 0):
+    """The inputs superminhash2 gives G1 and setsketch_signatures gives
+    G2."""
+    from kmerutils_tpu_torch.sketch import setsketch, superminhash
+    return (superminhash.grid_min_args(items, valid, m, seed),
+            setsketch.grid_max_args(items, valid, m, seed))
+
+
+def grid_case(torch, G, name: str, args, what: str) -> int:
+    """G1 ("grid_min") or G2 on args against its plain version: fails on
+    any difference; returns the max |difference| (0)."""
+    got = getattr(G, name)(*args)
+    want = getattr(G, name + "_ref")(*args)
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    err = max_abs_err(got, want)
+    print(f"{name} at {what}: {tuple(args[0].shape)} x m={args[-1].numel()}"
+          f", {bad} mismatches", flush=True)
+    check(bad == 0, f"{name} != plain at {what}")
+    return err
+
+
+def random_items(torch, rng, n: int, P: int, wide: bool):
+    """Random items with half of them >= 2^31 (u32) or >= 2^63 (u64), a
+    valid mask with all-invalid rows and a row of one valid position."""
+    if wide:
+        a = rng.integers(0, 1 << 64, size=(n, P), dtype=np.uint64)
+        items = torch.from_numpy(a.view(np.int64)).cuda()
+    else:
+        a = rng.integers(0, 1 << 32, size=(n, P), dtype=np.uint64)
+        items = torch.from_numpy(a.astype(np.uint32).view(np.int32)).cuda()
+    v = rng.random((n, P)) < 0.9
+    v[::7] = False
+    v[1] = False
+    v[1, P // 2] = True
+    return items, torch.from_numpy(v).cuda()
+
+
+def on_floor_boundary(torch, h, p):
+    """For u32 hashes h (int64 on the CPU): whether HLL's float32 value
+    before the floor (setsketch.prefloor) lies within 2 ulp of an integer
+    on the CPU or on the card, and those values on each."""
+    from kmerutils_tpu_torch.sketch import setsketch
+    edge = torch.zeros(h.shape, dtype=torch.bool)
+    vals = {}
+    for dev in ("cpu", "cuda"):
+        v = vals[dev] = setsketch.prefloor(h.to(dev), p).cpu()
+        ulp = torch.nextafter(v.abs(), torch.tensor(float("inf"))) - v.abs()
+        edge |= (v - v.round()).abs() <= 2 * ulp
+    return edge, vals
+
+
+def hll_agree(torch, card, cpu, h_best, m: int, what: str) -> int:
+    """HLL registers from the card against the same from the CPU (which
+    the tests hold to the JAX package): a register may differ only by one
+    and where the float32 value before the floor lies within 2 ulp of an
+    integer on either device; ``h_best()`` gives the exact largest hashes
+    [n, m] behind them.  Returns the number of differing registers."""
+    from kmerutils_tpu_torch.sketch import setsketch
+    bad = card != cpu
+    n_bad = int(bad.sum())
+    if n_bad:
+        h = (h_best().cpu().to(torch.int64) & 0xFFFFFFFF)[bad]
+        edge, vals = on_floor_boundary(torch, h,
+                                       setsketch.SetSketchParams(m=m))
+        for i in range(min(n_bad, 8)):
+            print(f"HLL at {what}: register card {int(card[bad][i])} CPU "
+                  f"{int(cpu[bad][i])}, hash {int(h[i]):#010x}, value "
+                  f"before the floor CPU {float(vals['cpu'][i]):.9g} card "
+                  f"{float(vals['cuda'][i]):.9g}, on a boundary "
+                  f"{bool(edge[i])}", flush=True)
+        check(bool(edge.all()) and int((card[bad] - cpu[bad]).abs().max())
+              <= 1, f"HLL at {what}: the card's registers differ from the "
+              f"CPU's away from a float32 floor boundary")
+    print(f"HLL at {what}, card vs CPU: {n_bad} of {card.numel()} registers "
+          f"differ, each on a float32 floor boundary", flush=True)
+    return n_bad
+
+
+def hll_card_vs_cpu(torch, batch, k: int, m: int, what: str,
+                    collection: bool = False) -> int:
+    """The whole HLL ``Sketcher.sketch_batch`` (and ``sketch_collection``)
+    of a batch on the card against the same on the CPU, under
+    :func:`hll_agree`'s rule.  Returns the number of differing
+    registers."""
+    from kmerutils_tpu_torch.ops import sketch_grid as G
+    from kmerutils_tpu_torch.sketch import setsketch
+    from kmerutils_tpu_torch.sketch.jaccard import Sketcher, hashed_kmers
+    from kmerutils_tpu_torch.sketch.params import SeqSketcherParams, SketchAlgo
+    sk = Sketcher(SeqSketcherParams(kmer_size=k, sketch_size=m,
+                                    algo=SketchAlgo.HLL))
+    host = batch.to("cpu")
+
+    @functools.lru_cache(maxsize=1)
+    def h_best():
+        items, valid = hashed_kmers(host, k)
+        return G.grid_max(*setsketch.grid_max_args(items, valid, m))
+
+    n_bad = hll_agree(torch, sk.sketch_batch(batch).cpu(),
+                      sk.sketch_batch(host), h_best, m,
+                      f"{what}, k={k}, sketch_batch")
+    if collection:
+        n_bad += hll_agree(
+            torch, sk.sketch_collection(batch).cpu()[None],
+            sk.sketch_collection(host)[None],
+            lambda: (h_best().to(torch.int64) & 0xFFFFFFFF).amax(
+                dim=0, keepdim=True), m, f"{what}, k={k}, sketch_collection")
+    return n_bad
+
+
+def hll_whole_checks(torch, rng, bench, m: int = 200) -> int:
+    """:func:`hll_card_vs_cpu` at the bench shape and on a ragged batch
+    (200 reads of 5-1000 bases, sketch_collection too), k=8 and k=21.
+    Short reads give registers whose value before the floor lies where
+    the CPU's and the card's float32 log differ by an ulp now and then, so
+    the rule is exercised.  Returns the number of differing registers."""
+    from kmerutils_tpu_torch.base.sequence import pack_codes
+    codes = rng.integers(0, 4, size=(200, 1000), dtype=np.uint8)
+    lens = rng.integers(5, 1000, size=200).astype(np.int32)
+    ragged = pack_codes(codes, lens, device="cuda")
+    n_bad = 0
+    for k in (8, 21):
+        n_bad += hll_card_vs_cpu(torch, bench, k, m, "the bench shape")
+        n_bad += hll_card_vs_cpu(torch, ragged, k, m, "a ragged batch",
+                                 collection=True)
+    return n_bad
+
+
+def grid_kernels_vs_plain(torch, rng, card: str, bench, m: int = 200):
+    """G1 / G2 exact at every checked shape; timed at the bench shape (k=8
+    and k=21) and sketch_collection's row.  Returns the kernels' numbers."""
+    from kmerutils_tpu_torch import _build, roofline as rl
+    from kmerutils_tpu_torch.ops import sketch_grid as G
+    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
+    ipp = rl.grid_instructions_per_pair(_build.library_path())
+    check(set(ipp) == {"grid_min", "grid_max"}, f"grid SASS not found: {ipp}")
+    for k, r in ipp.items():
+        print(f"SASS {k}: inner loop {r['instructions']} instructions for "
+              f"{r['draws']} pairs", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = rl.sm_clock_hz()
+    err = {"grid_min": 0, "grid_max": 0}
+
+    def both(items, valid, mm, what, seed=0):
+        g1, g2 = grid_args(torch, items, valid, mm, seed)
+        err["grid_min"] = max(err["grid_min"],
+                              grid_case(torch, G, "grid_min", g1, what))
+        err["grid_max"] = max(err["grid_max"],
+                              grid_case(torch, G, "grid_max", g2, what))
+        return g1, g2
+
+    timed = {}
+    for k in (8, 21):
+        items, valid = hashed_kmers(bench, k)
+        valid = valid.clone()
+        valid[5::97] = False                   # all-invalid rows
+        g1, g2 = both(items, valid, m, f"bench k={k}")
+        timed[f"bench_k{k}"] = (g1, g2)
+    for mm in (1, 13, 200, 4096):
+        for wide in (False, True):
+            items, valid = random_items(torch, rng, 64, 2000, wide)
+            both(items, valid, mm, f"m={mm} {'u64' if wide else 'u32'} "
+                 f"items", seed=7)
+    items, valid = hashed_kmers(bench, 21)
+    g1, g2 = both(items.reshape(1, -1), valid.reshape(1, -1), m,
+                  "sketch_collection's row (k=21)")
+    timed["collection_k21"] = (g1, g2)
+    out = {}
+    for shape, (g1, g2) in timed.items():
+        for name, args in (("grid_min", g1), ("grid_max", g2)):
+            kern = functools.partial(getattr(G, name), *args)
+            plain = functools.partial(getattr(G, name + "_ref"), *args)
+            ms, pms, runs = turns(torch, kern, plain, iters=10, plain_iters=1)
+            ops, nbytes = rl.grid_work(name, args)
+            bound = rl.bound(nbytes, ops, sms, clock)
+            pairs = int(args[-2].sum()) * m
+            r = {"ms": ms, "plain_ms": pms, "bound_ms": bound[0],
+                 "bound_by": bound[1], "runs": runs,
+                 "enqueue_ms": enqueue_ms(torch, kern),
+                 "ops_per_pair": ops / pairs,
+                 "sass_bound_ms": rl.issue_ms(
+                     pairs * ipp[name]["instructions_per_draw"], sms,
+                     clock)}
+            out.setdefault(name, {})[shape] = r
+            print(json.dumps({"timing": f"{name}_{shape}",
+                              "rows": args[0].shape[0],
+                              "P": args[0].shape[1], "m": m, **r,
+                              "bound_share": bound[0] / ms,
+                              "card": card}), flush=True)
+        del g1, g2
+    torch.cuda.empty_cache()
+    for name in out:
+        out[name]["max_abs_err"] = err[name]
+        out[name]["sass_per_pair"] = ipp[name]["instructions_per_draw"]
+    return out
+
+
+def family_dump_check(torch, rng, dump: str, clean, algo: str, m: int,
+                      k: int, dev) -> None:
+    """A ``-a algo`` dump read back: header and shape; then 64 sampled
+    reads sketched on the card through the kernels and through the plain
+    path (every kernel replaced by its plain version), and read by read on
+    the CPU (which the tests hold to the JAX package).  The card's
+    signatures, before any cast, equal the plain path's and the CPU's (HLL
+    registers the CPU's under hll_agree's float32 floor-boundary rule), and
+    the dump equals them cast as the JAX CLI casts them."""
+    from kmerutils_tpu_torch.base.sequence import pack_codes
+    from kmerutils_tpu_torch.cli.datasketcher import jax_words
+    from kmerutils_tpu_torch.io import formats
+    from kmerutils_tpu_torch.ops import sketch_grid as G
+    from kmerutils_tpu_torch.sketch import setsketch
+    from kmerutils_tpu_torch.sketch.jaccard import Sketcher, hashed_kmers
+    from kmerutils_tpu_torch.sketch.params import SeqSketcherParams, SketchAlgo
+    kk, mm, sigs = formats.read_signature_dump(dump)
+    want_dt = np.uint32 if algo == "SUPER2" else np.uint64
+    check((kk, mm) == (k, m) and sigs.shape == (len(clean), m)
+          and sigs.dtype == want_dt,
+          f"-a {algo} dump holds {sigs.dtype}{sigs.shape}")
+    pick = np.sort(rng.choice(len(clean), size=64, replace=False))
+    L = max(clean[i].size for i in pick)
+    codes = np.zeros((64, L), np.uint8)
+    for r, i in enumerate(pick):
+        codes[r, : clean[i].size] = clean[i]
+    batch = pack_codes(codes, np.array([clean[i].size for i in pick],
+                                       np.int32), device=dev)
+    algo_e = SketchAlgo(algo)
+    sk = Sketcher(SeqSketcherParams(kmer_size=k, sketch_size=m, algo=algo_e))
+    card = sk.sketch_batch(batch)
+    with plain_kernels():
+        plain = sk.sketch_batch(batch)
+    torch.cuda.synchronize()
+    check(torch.equal(card, plain), f"-a {algo}: the kernels' path != the "
+          f"plain path on the card on sampled reads")
+    card = card.cpu()
+    singles = [pack_codes(clean[i][None], np.array([clean[i].size],
+                                                   np.int32), device="cpu")
+               for i in pick]
+    cpu = torch.cat([sk.sketch_batch(b) for b in singles])
+    if algo_e == SketchAlgo.HLL:
+        hll_agree(torch, card, cpu, lambda: torch.cat([
+            G.grid_max(*setsketch.grid_max_args(*hashed_kmers(b, k), m))
+            for b in singles]), m, f"-a {algo}'s 64 sampled reads")
+    else:
+        check(card.dtype == cpu.dtype and torch.equal(card, cpu),
+              f"-a {algo}: the card's signatures != the CPU's on sampled "
+              f"reads")
+    bad = int((sigs[pick] != jax_words(card.numpy(), algo_e)).sum())
+    print(f"-a {algo}: {sigs.shape[0]} reads in the dump, 64 sampled reads: "
+          f"the card's {card.dtype} signatures checked against the plain "
+          f"path and the CPU, {bad} mismatching dump words", flush=True)
+    check(bad == 0, f"-a {algo}: dump != the card's signatures cast as the "
+          f"JAX CLI casts them on sampled reads")
+
+
+def aa_checks(torch, rng, card: str, n: int = 1024, L: int = 2000,
+              m: int = 200) -> dict:
+    """SketcherAA (all six families) at n x L residues, k = 5 and 9, equal
+    to the plain path on the card; its sketch_batch times."""
+    from kmerutils_tpu_torch.aa import kmeraa
+    from kmerutils_tpu_torch.sketch.params import SeqSketcherParams, SketchAlgo
+    letters = np.frombuffer(kmeraa.alphabet.BASES, np.uint8)
+    seqs = [letters[c].tobytes()
+            for c in rng.integers(0, 20, size=(n, L))]
+    batch = kmeraa.pack_aa_reads(seqs, device="cuda")
+    out = {}
+    for k in (5, 9):
+        for algo in SketchAlgo:
+            sk = kmeraa.SketcherAA(SeqSketcherParams(
+                kmer_size=k, sketch_size=m, algo=algo))
+            got = sk.sketch_batch(batch)
+            with plain_kernels():
+                want = sk.sketch_batch(batch)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"SketcherAA {algo.value} k={k} != plain path")
+            out[f"{algo.value}_k{k}_ms"] = cuda_ms(
+                torch, lambda: sk.sketch_batch(batch), 3, warmup=1)
+    print(json.dumps({"timing": "sketcher_aa", "sequences": n,
+                      "residues": L, "m": m, **out, "card": card}),
+          flush=True)
+    return out
+
+
+def sketch_families(torch, rng, tmp: str, card: str, dev, fq8: str, clean8,
+                    m: int = 200, bench=(1024, 6000)) -> dict:
+    phase("11 the other five families: G1/G2 vs plain, datasketcher -a, "
+          "SketcherAA")
+    t_phase = time.perf_counter()
+    from kmerutils_tpu_torch.ops import sketch_grid as G
+    from kmerutils_tpu_torch.sketch.jaccard import Sketcher
+    from kmerutils_tpu_torch.sketch.params import SeqSketcherParams, SketchAlgo
+    batch = random_batch(rng, *bench)
+    out = grid_kernels_vs_plain(torch, rng, card, batch, m)
+    out["hll_registers_differ"] = hll_whole_checks(torch, rng, batch, m)
+    for k in (8, 21):               # the whole sketch_batch of each family
+        for algo in FAMILIES:
+            sk = Sketcher(SeqSketcherParams(kmer_size=k, sketch_size=m,
+                                            algo=SketchAlgo(algo)))
+            out.setdefault("sketch_batch_ms", {})[f"{algo}_k{k}"] = cuda_ms(
+                torch, lambda: sk.sketch_batch(batch), 3, warmup=1)
+    print(json.dumps({"timing": "sketch_batch_families", "rows": bench[0],
+                      "bases": bench[1], "m": m, **out["sketch_batch_ms"],
+                      "card": card}), flush=True)
+    del batch
+    torch.cuda.empty_cache()
+
+    # --- the main path: counts from 0 to what the five CLI runs launched ---
+    G.launches_min = G.launches_max = 0
+    walls = {}
+    for algo in FAMILIES:
+        os.makedirs(os.path.join(tmp, "a_" + algo))
+        walls[algo] = datasketcher_run(
+            ["-f", fq8, "-s", str(m), "-k", "8", "-a", algo, "-d",
+             os.path.join(tmp, "a_" + algo, "sigs.bin"), "--device",
+             str(dev)], f"datasketcher -a {algo} -k 8")
+    launches = {"G1": G.launches_min, "G2": G.launches_max}
+    # -----------------------------------------------------------------------
+    print(f"launches: G1 {launches['G1']}, G2 {launches['G2']}", flush=True)
+    check(launches["G1"] >= 2 and launches["G2"] >= 1,
+          "G1 / G2 were not launched by the -a SUPER / SUPER2 / HLL runs")
+    for algo in FAMILIES:
+        family_dump_check(torch, rng, os.path.join(tmp, "a_" + algo,
+                                                   "sigs.bin"),
+                          clean8, algo, m, 8, dev)
+    mbases = sum(c.size for c in clean8) / 1e6
+    print(json.dumps({"timing": "datasketcher_a_k8_wall_s", **walls,
+                      "mbases": mbases, "card": card}), flush=True)
+    out["aa"] = aa_checks(torch, rng, card)
+    out.update(launches=launches, cli_wall_s=walls,
+               seconds=time.perf_counter() - t_phase)
+    print(f"phase 11: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --baseline: K1-K7 of this tree against another tree's, in turns
 # ---------------------------------------------------------------------------
 
@@ -2163,6 +2550,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             rest_of_datasketcher(torch, rng, tmp, card, "cuda", fq8, clean8,
                                  bounds)
+            torch.cuda.empty_cache()
+            g = sketch_families(torch, rng, tmp, card, "cuda", fq8, clean8)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2214,6 +2603,24 @@ def main(argv=None) -> int:
         "device_ms_each_shape": [r["device_ms"] for r in k7["shapes"]],
         "plain_ms_each_shape": [r["plain_ms"] for r in k7["shapes"]],
         "bound_ms_each_shape": [r["bound_ms"] for r in k7["shapes"]]})
+    for name, key, tpu in (("grid_min", "G1", G1_JAX),
+                           ("grid_max", "G2", G2_JAX)):
+        r = g[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": G1_SOURCE,
+            "replaces": tpu, "launches": g["launches"][key],
+            "mismatches": 0, "max_abs_err": r["max_abs_err"],
+            "ms": r["bench_k8"]["ms"], "plain_ms": r["bench_k8"]["plain_ms"],
+            "bound_ms": r["bench_k8"]["bound_ms"],
+            "bound_by": r["bench_k8"]["bound_by"], "library_ms": None,
+            "ops_per_pair": r["bench_k8"]["ops_per_pair"],
+            "sass_per_pair": r["sass_per_pair"],
+            "ms_each_shape": {s: v["ms"] for s, v in r.items()
+                              if isinstance(v, dict)},
+            "plain_ms_each_shape": {s: v["plain_ms"] for s, v in r.items()
+                                    if isinstance(v, dict)},
+            "bound_ms_each_shape": {s: v["bound_ms"] for s, v in r.items()
+                                    if isinstance(v, dict)}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -74,6 +74,11 @@ def _declare(lib) -> None:
     lib.launch_tournament.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ll, ci,
                                       ci, ci, ctypes.POINTER(TournamentPlan),
                                       vp]
+    lib.sketch_grid_config.restype = ci
+    lib.sketch_grid_config.argtypes = [ctypes.POINTER(ci)]
+    lib.launch_sketch_grid.restype = ci
+    lib.launch_sketch_grid.argtypes = [ci, vp, vp, vp, vp, vp, vp, ll, ll, ci,
+                                       ci, ci, ll, vp]
     declare_merge(lib)
 
 

@@ -87,7 +87,7 @@ def multi_hash(h0: torch.Tensor, k: int, nb_hash: int) -> torch.Tensor:
     return torch.cat([h0[..., None], tmp], dim=-1)
 
 
-def nthash_kmers_ascii(reads, k: int, device="cpu"):
+def nthash_kmers_ascii(reads, k: int, device="cuda"):
     """:func:`nthash_kmers` over ASCII reads (the reference's 8-bit seed
     table maps A/C/G/T to the same four seeds)."""
     from .sequence import pack_ascii_reads

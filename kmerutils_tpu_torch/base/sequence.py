@@ -69,7 +69,7 @@ def pack_words(codes: np.ndarray, lengths: np.ndarray | None = None):
 
 
 def batch_from_numpy(words: np.ndarray, lengths: np.ndarray,
-                     device="cpu") -> ReadBatch:
+                     device="cuda") -> ReadBatch:
     """ReadBatch from host words uint32[n, W] and lengths int32[n]."""
     w = torch.from_numpy(np.ascontiguousarray(words, np.uint32).view(np.int32))
     ln = torch.from_numpy(np.ascontiguousarray(lengths, np.int32))
@@ -77,14 +77,14 @@ def batch_from_numpy(words: np.ndarray, lengths: np.ndarray,
 
 
 def pack_codes(codes: np.ndarray, lengths: np.ndarray | None = None,
-               device="cpu") -> ReadBatch:
+               device="cuda") -> ReadBatch:
     """Pack per-base 2-bit codes [n_reads, max_len] (numpy) into a ReadBatch
     on ``device``; positions at or past a read's length are zeroed."""
     words, lengths = pack_words(codes, lengths)
     return batch_from_numpy(words, lengths, device)
 
 
-def pack_ascii_reads(reads, device="cpu") -> ReadBatch:
+def pack_ascii_reads(reads, device="cuda") -> ReadBatch:
     """Pack ASCII reads (bytes/str); a non-ACGT base raises — ingest
     (io/fastx.py) drops such reads before packing."""
     arrs = []

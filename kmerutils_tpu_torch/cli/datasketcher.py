@@ -1,23 +1,29 @@
-"""datasketcher CLI: ProbMinHash signatures of the reads (or of blocks of
-the reads) of a FASTA/FASTQ file, and their nearest neighbours.
+"""datasketcher CLI: signatures of the reads (or of blocks of the reads)
+of a FASTA/FASTQ file, and their nearest neighbours.
 
 Port of kmerutils_tpu/cli/datasketcher.py, same flags plus ``--device``:
 
     datasketcher -f <file> -s <sketch_size> -k <kmer_size> -d <dump>
-                 [-b block_size] [--device cuda|cpu]
+                 [-b block_size] [-a algo] [--device cuda|cpu]
                  [ann -n nbng [--engine hnsw|brute]]
 
 Streams the file in packs of 10000 reads (5000 in block mode), sketches
-each batch on the device (canonical k-mers -> Wang hash -> per-read or
-per-block multiplicities -> tournament kernel) and writes, byte-identical
-to the JAX CLI, ``sketchparams_dump.json`` and either the signature dump
-(magic 0xceabeadd, u32 words, reads in file order) or the block dump
-(0xceabbadd).  ``ann`` writes the neighbour table ``<dump>-ann``: from the
-native HNSW index when the native library loads (its graph goes to
-``<dump>-ann.hnsw``), else, or with ``--engine brute``, from the exact
-search on the device (ann.py).  In block mode every live block is one
-vector, same-read hits are dropped, and ``<dump>-ann.blocks`` maps table
-rows to (numseq, block).  Only ``-a PROB3A`` is ported.
+each batch on the device with the family ``-a`` names (PROB3A by default;
+SUPER, SUPER2, OPTDENS, REVOPTDENS, HLL: sketch/jaccard.py) and writes,
+byte-identical to the JAX CLI, ``sketchparams_dump.json`` and either the
+signature dump (magic 0xceabeadd, reads in file order) or the block dump
+(0xceabbadd).  The JAX CLI's casts are kept, quirks included: PROB3A and
+SUPER2 dump u32 words (a u64 signature keeps its low half); the other
+families go through numpy's cast to u64, so SUPER keeps only its integer
+part, OPTDENS / REVOPTDENS values in [0, 1) dump as 0 and +inf as numpy
+casts it; HLL registers are u16.  Block mode always sketches ProbMinHash
+blocks, whatever ``-a`` says.  ``ann`` writes the neighbour table
+``<dump>-ann``: from the native HNSW index when the native library loads
+(over the signatures cast to u32; its graph goes to ``<dump>-ann.hnsw``),
+else, or with ``--engine brute``, from the exact search on the device over
+the signatures as they are (ann.py).  In block mode every live block is
+one vector, same-read hits are dropped, and ``<dump>-ann.blocks`` maps
+table rows to (numseq, block).
 """
 
 from __future__ import annotations
@@ -52,19 +58,25 @@ def build_parser():
     return p
 
 
-def _not_ported(args) -> str | None:
-    if args.algo != "PROB3A":
-        return (f"-a {args.algo} is not ported yet "
-                "(ROADMAP.md Queue 1 item 11: the other sketchers)")
-    return None
-
-
-def _to_u32(sigs: np.ndarray) -> np.ndarray:
-    """PROB3A dumps hold u32 words: u32 bit patterns as they are, u64
-    signatures cut to their low 32 bits (as the JAX CLI's astype does)."""
-    if sigs.dtype == np.int32:
-        return sigs.view(np.uint32)
-    return (sigs & 0xFFFFFFFF).astype(np.uint32)
+def jax_words(sigs: np.ndarray, algo, hnsw: bool = False) -> np.ndarray:
+    """The port's signatures (numpy, in its dtypes) cast as the JAX CLI
+    casts them: the signature dump's words (u32 for PROB3A and SUPER2, the
+    others numpy's cast to u64, so floats truncate), or with ``hnsw`` the
+    u32 words its HNSW index takes (numpy's cast to u32).  The casts start
+    from the JAX package's dtypes: HLL registers in the default
+    parameters' register dtype (u16), int32 / int64 bit patterns as u32 /
+    u64, floats as they are."""
+    from ..sketch.params import SketchAlgo
+    from ..sketch.setsketch import SetSketchParams
+    if algo == SketchAlgo.HLL:
+        host = sigs.astype(SetSketchParams().register_dtype)
+    elif sigs.dtype in (np.int32, np.int64):
+        host = sigs.view(np.uint32 if sigs.dtype == np.int32 else np.uint64)
+    else:
+        host = sigs
+    if hnsw or algo in (SketchAlgo.PROB3A, SketchAlgo.SUPER2):
+        return host.astype(np.uint32)
+    return host if host.dtype == np.uint32 else host.astype(np.uint64)
 
 
 def _hnsw_hits(args, sigs_u32: np.ndarray, k: int, ef_search: int):
@@ -97,15 +109,16 @@ def _use_hnsw(args) -> bool:
     return args.engine == "hnsw" and hnsw.available()
 
 
-def _read_ann(args, ordered: np.ndarray, device) -> None:
-    """Neighbour table of the per-read signatures (file order)."""
+def _read_ann(args, ordered: np.ndarray, algo, device) -> None:
+    """Neighbour table of the per-read signatures ``ordered`` (file order,
+    the port's dtypes) of family ``algo``."""
     from ..ann import brute_force_neighbors, write_neighbor_dump
     n = ordered.shape[0]
     if _use_hnsw(args):
         # drop the self match by id (a duplicate read can rank above it)
         # and the -1 padding of a search that found fewer hits
         k = min(args.nbng, n - 1)
-        ids, sim = _hnsw_hits(args, _to_u32(ordered), k,
+        ids, sim = _hnsw_hits(args, jax_words(ordered, algo, hnsw=True), k,
                               max(64, 2 * args.nbng))
         keep = (ids >= 0) & (ids != np.arange(n, dtype=np.int64)[:, None])
         nn, sim = _first_kept(ids, sim, keep, k)
@@ -170,9 +183,6 @@ def main(argv=None):
                                  SeqSketcherParams, SketchAlgo)
 
     args = build_parser().parse_args(argv)
-    why = _not_ported(args)
-    if why:
-        raise NotImplementedError(why)
     device = torch.device(args.device)
     t0 = time.time()
     params = SeqSketcherParams(kmer_size=args.kmer_size,
@@ -217,10 +227,10 @@ def main(argv=None):
     all_idx = np.concatenate(block_idx)
     ordered = np.concatenate(rows)[np.argsort(all_idx, kind="stable")]
     formats.write_signature_dump(args.dumpfname, args.kmer_size,
-                                 _to_u32(ordered))
+                                 jax_words(ordered, params.algo))
     print(f"sketched {len(all_idx)} reads in {time.time() - t0:.1f}s")
     if args.cmd == "ann":
-        _read_ann(args, ordered, device)
+        _read_ann(args, ordered, params.algo, device)
     return 0
 
 

@@ -92,7 +92,7 @@ class StreamCountTable:
 
     @staticmethod
     def create(capacity: int, wide: bool, coords: bool,
-               device="cpu") -> "StreamCountTable":
+               device="cuda") -> "StreamCountTable":
         dev = torch.device(device)
         key_dt = torch.int64 if wide else torch.int32
         return StreamCountTable(
@@ -287,7 +287,7 @@ def finalize(table: StreamCountTable, min_count: int = 1,
 
 def table_from_jax(arrs, used: int, n_dropped: int, last_distinct: int,
                    wide: bool, coords: bool, cap: int, grow_hint: int = 0,
-                   device="cpu") -> StreamCountTable:
+                   device="cuda") -> StreamCountTable:
     """The port's table from a JAX ``StreamCountTable``'s state.
 
     ``arrs`` are the JAX table's kernel-native int32 words as numpy arrays

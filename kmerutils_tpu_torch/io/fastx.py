@@ -213,7 +213,7 @@ def read_batches(path: str, batch_reads: int = 10000,
                     codes[i, :ln] = c
                     lengths[i] = ln
                 words, lengths = pack_words(codes, lengths)
-            yield (batch_from_numpy(words, lengths),
+            yield (batch_from_numpy(words, lengths, device="cpu"),
                    np.array([indices[i] for i in sel], dtype=np.int64))
         window, indices = keep, keep_idx
         # carried entries do not count toward the next flush's triggers
@@ -264,7 +264,7 @@ def _put(q: _queue.Queue, item, stop: threading.Event) -> bool:
     return False
 
 
-def read_batches_overlapped(path: str, device="cpu", **kw):
+def read_batches_overlapped(path: str, device="cuda", **kw):
     """:func:`read_batches` with parsing in a producer thread and each batch
     moved to ``device``.
 

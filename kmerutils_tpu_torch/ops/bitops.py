@@ -34,6 +34,15 @@ def shr64(x: torch.Tensor, s: int) -> torch.Tensor:
     return (x >> s) & ((1 << (64 - s)) - 1)
 
 
+def urem64(x: torch.Tensor, m: int) -> torch.Tensor:
+    """x mod m for u64 bit patterns held in int64 and 0 < m < 2^62
+    (``torch.remainder`` is signed: it is wrong for every x >= 2^63)."""
+    if not 0 < m < 1 << 62:
+        raise ValueError(f"modulus {m} out of range")
+    r = (x & ((1 << 63) - 1)) % m        # the low 63 bits
+    return torch.where(x < 0, (r + (1 << 63) % m) % m, r)
+
+
 def flip64(x: torch.Tensor) -> torch.Tensor:
     """Order-preserving map of u64 bit patterns onto signed int64 order."""
     return x ^ SIGN64

@@ -1,7 +1,8 @@
 """Invertible integer hashes and the splitmix64 counter RNG on int64 carriers.
 
 Port of kmerutils_tpu/ops/rng.py: Thomas Wang's hash32shiftmult and
-hash64shift with exact inverses, and the splitmix64 finalizer.  u32 inputs
+hash64shift with exact inverses, the splitmix64 finalizer, the two-value
+mix built on it, and the maps from random bits to uniform floats.  u32 inputs
 are int64 tensors in [0, 2^32), u64 inputs are int64 bit patterns (see
 ops/bitops.py); results are bit-identical to the JAX functions.
 """
@@ -66,3 +67,24 @@ def splitmix64(x: torch.Tensor) -> torch.Tensor:
     x = (x ^ shr64(x, 30)) * s64(0xBF58476D1CE4E5B9)
     x = (x ^ shr64(x, 27)) * s64(0x94D049BB133111EB)
     return x ^ shr64(x, 31)
+
+
+def mix2_64(a: torch.Tensor, b) -> torch.Tensor:
+    """Mix two u64 values (bit patterns; ``b`` may be a Python int) into
+    one."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.tensor(s64(b), dtype=torch.int64, device=a.device)
+    return splitmix64(a ^ (splitmix64(b) + s64(_GOLDEN64)))
+
+
+def uniform01_from_bits(u64bits: torch.Tensor) -> torch.Tensor:
+    """u64 bit patterns -> float64 uniform in (0, 1] from the top 53 bits:
+    (x + 1) * 2^-53."""
+    return (shr64(u64bits, 11).to(torch.float64) + 1.0) * 2.0**-53
+
+
+def uniform01_f32_from_bits(u32bits: torch.Tensor) -> torch.Tensor:
+    """u32 values (int64 carrier or int32 bit patterns) -> float32 uniform
+    in (0, 1] from the top 24 bits: (x + 1) * 2^-24, exact in float32."""
+    x = (u32bits.to(torch.int64) & M32) >> 8
+    return (x.to(torch.float32) + 1.0) * 2.0**-24

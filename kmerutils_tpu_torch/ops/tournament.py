@@ -43,7 +43,7 @@ launches_u32 = 0
 launches_u64 = 0
 
 
-def slot_consts(m: int, seed: int = 0, device="cpu") -> torch.Tensor:
+def slot_consts(m: int, seed: int = 0, device="cuda") -> torch.Tensor:
     """Per-slot hash constants, u32 values in int64[m]: the top half of
     splitmix64(arange(m) + seed * golden64), as in the JAX package."""
     off = s64(int(seed) * _GOLDEN64)

@@ -10,6 +10,16 @@ A kernel's bound is the larger of two times for the same work:
   per draw are counted in the SASS of each kernel's inner loop
   (``cuobjdump -sass``); chip_smoke.py takes the fewest of any tournament
   kernel, so every build and mode is held to one figure for the same work.
+  For the grid kernels G1/G2 (csrc/sketch.cu), the integer operations
+  that the function needs per (position, slot) pair, counted by hand from
+  the function and not from the kernel's code (:data:`G1_OPS_PER_PAIR`,
+  :data:`G1_OPS_PER_ROUND`, :data:`G2_OPS_PER_PAIR`; :func:`grid_work`),
+  over the same issue rate.  Each step is counted as the fewest Hopper
+  instructions that state it: a multiply one IMAD, a two- or three-input
+  bitwise step (an xor, an xor and a mask) one LOP3, a shift one SHF, a
+  test, a min or a max one instruction, a pack of two disjoint bit fields
+  one IMAD.  :func:`grid_instructions_per_pair` counts the kernels' own
+  inner loops in their SASS, to say how far the code is from that count.
 
 Used by chip_smoke.py; nothing here runs at import time, and nothing here
 is on the port's data path.
@@ -25,6 +35,19 @@ import subprocess
 HBM_BYTES_PER_S = 3.35e12
 LANES_PER_SM = 128          # 4 schedulers x 32 lanes issue per clock
 DRAW_MARKER = "0x9e3779b1"  # the first multiply of mix32: one per draw
+# one multiply per (position, slot) pair of the grid kernels: G1's second
+# hash multiply, G2's first
+PAIR_MARKERS = {"grid_min": 0xC2B2AE3D, "grid_max": 0x9E3779B1}
+# integer operations per (position, slot) pair that the grid functions need
+# (see the module's docstring for how a step is counted).  G2: ^ salt,
+# * 0x9E3779B1, >> 15, ^, * 0x85EBCA77, max.  G1, the slot draw and the
+# reduction: ^ slotc, * 0x85EBCA77, >> 13, ^, * 0xC2B2AE3D, >> 16, ^,
+# >> nbits, the pack pi << u_bits | u, min; and per round of the keyed
+# permutation: * a, (^ b) & mask, >> sh, (^) & mask, and the test x >= m
+# that ends the walk (after the last walk round, the clamp to m - 1).
+G2_OPS_PER_PAIR = 6
+G1_OPS_PER_PAIR = 10
+G1_OPS_PER_ROUND = 5
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                    r"([A-Z][A-Z0-9_.]*)([^;]*);")
@@ -96,19 +119,35 @@ def sass_functions(lib_path: str) -> dict[str, list[tuple[int, str, str]]]:
     return funcs
 
 
-def _is_draw(op: str, rest: str, marker: bool) -> bool:
+def _spellings(c: int) -> tuple[str, str]:
+    """A u32 immediate as SASS may print it: unsigned hex, or the negated
+    hex of its signed value."""
+    signed = c - (1 << 32) if c >= 1 << 31 else c
+    return hex(c), ("-" + hex(-signed)) if signed < 0 else hex(signed)
+
+
+def _has(rest: str, spellings) -> bool:
+    low = rest.lower()
+    return any(re.search(re.escape(sp) + r"(?![0-9a-f])", low)
+               for sp in spellings)
+
+
+def _is_draw(op: str, rest: str, marker) -> bool:
     if marker:
-        return DRAW_MARKER in rest.lower()
+        return _has(rest, marker)
     return op.startswith("I2F") and "U32" in op      # float(h >> 8)
 
 
-def draw_loop(insns) -> dict:
+def draw_loop(insns, spellings=(DRAW_MARKER,), fallback: bool = True) -> dict:
     """The innermost loop that holds draws: its instruction count, the
-    draws one pass makes (multiplies by DRAW_MARKER, or where the constant
-    sits in a register, unsigned int-to-float conversions) and their
-    ratio."""
+    draws one pass makes (instructions with an immediate spelled as one of
+    ``spellings``, or with ``fallback``, where the constant sits in a
+    register, unsigned int-to-float conversions) and their ratio."""
     loops = []
-    marker = any(DRAW_MARKER in r.lower() for _, _, r in insns)
+    marker = spellings if any(_has(r, spellings) for _, _, r in insns) \
+        else None
+    if marker is None and not fallback:
+        raise RuntimeError(f"no immediate {spellings} in the SASS")
     for addr, op, rest in insns:
         tgt = re.search(r"0x([0-9a-f]+)", rest)
         if op.startswith("BRA") and tgt and int(tgt.group(1), 16) < addr:
@@ -132,3 +171,59 @@ def tournament_instructions_per_draw(lib_path: str) -> dict[str, dict]:
     return {name: draw_loop(insns)
             for name, insns in sass_functions(lib_path).items()
             if "tournament" in name and "finish" not in name}
+
+
+def grid_instructions_per_pair(lib_path: str) -> dict[str, dict]:
+    """draw_loop of the grid kernels G1 ("grid_min") and G2 ("grid_max"),
+    counted per (position, slot) pair by their PAIR_MARKERS."""
+    out = {}
+    for name, insns in sass_functions(lib_path).items():
+        if "grid_kernel" in name:
+            kind = "grid_min" if "ILb1E" in name else "grid_max"
+            out[kind] = draw_loop(insns, _spellings(PAIR_MARKERS[kind]),
+                                  fallback=False)
+    return out
+
+
+def walk_rounds(a, b, valid, m: int, chunk: int = 1 << 24) -> int:
+    """The cycle-walk rounds after the first encryption that G1's keyed
+    permutation needs, summed over the valid positions (key halves a, b:
+    int32[n, P] u32 bit patterns) and the m slots: a round is needed while
+    the value lies outside [0, m), at most WALKS times."""
+    import torch
+
+    from .ops.bitops import M32
+    from .ops.sketch_grid import WALKS, encrypt_pow2, perm_bits
+    nbits = perm_bits(m)
+    ka = a[valid].to(torch.int64) & M32
+    kb = b[valid].to(torch.int64) & M32
+    j = torch.arange(m, dtype=torch.int64, device=a.device)
+    total = torch.zeros((), dtype=torch.int64, device=a.device)
+    step = max(1, chunk // m)
+    for p0 in range(0, ka.numel(), step):
+        a2, b2 = ka[p0:p0 + step, None], kb[p0:p0 + step, None]
+        x = encrypt_pow2(j, a2, b2, nbits)
+        for _ in range(WALKS):
+            need = x >= m
+            total += need.sum()
+            x = torch.where(need, encrypt_pow2(x, a2, b2, nbits), x)
+    return int(total)
+
+
+def grid_work(name: str, args) -> tuple[int, int]:
+    """(integer operations, bytes) that G1 ("grid_min", args x, a, b,
+    valid, slotc) or G2 ("grid_max", args x, valid, salts) needs: per valid
+    (position, slot) pair G2_OPS_PER_PAIR, or G1_OPS_PER_PAIR plus
+    G1_OPS_PER_ROUND for the first round of the permutation and for each
+    walk round this data needs (:func:`walk_rounds`); bytes for the u32
+    inputs and the valid byte per position read once and the [n, m] u32
+    results written once."""
+    valid, m = args[-2], args[-1].numel()
+    n, P = valid.shape
+    pairs = int(valid.sum()) * m
+    nwords = len(args) - 2
+    nbytes = n * P * (4 * nwords + 1) + n * m * 4
+    if name == "grid_max":
+        return pairs * G2_OPS_PER_PAIR, nbytes
+    rounds = pairs + walk_rounds(args[1], args[2], valid, m)
+    return pairs * G1_OPS_PER_PAIR + rounds * G1_OPS_PER_ROUND, nbytes

@@ -1,9 +1,12 @@
 """k-mer hashing for the sketchers and the algorithm-dispatched Sketcher.
 
-Port of the PROB3A path of kmerutils_tpu/sketch/jaccard.py.  The item of a
-k-mer is the invertible Wang hash of its canonical value: u32 items (int32
-bit patterns) for k <= 16, u64 items (int64 bit patterns) for
-17 <= k <= 32.
+Port of kmerutils_tpu/sketch/jaccard.py.  The item of a k-mer is the
+invertible Wang hash of its canonical value (``hash_name="wang"``), or the
+canonical value itself (``"identity"``): u32 items (int32 bit patterns) for
+k <= 16, u64 items (int64 bit patterns) for 17 <= k <= 32.  The Sketcher
+dispatches to the six families: PROB3A (probminhash.py, kernels K1/K2),
+SUPER and SUPER2 (superminhash.py, kernel G1), OPTDENS and REVOPTDENS
+(densminhash.py), HLL (setsketch.py, kernel G2).
 """
 
 from __future__ import annotations
@@ -18,66 +21,130 @@ from ..base.sequence import ReadBatch
 from ..count import exact
 from ..ops.bitops import M32, u32_to_i32
 from ..ops.rng import wang_hash32, wang_hash64
-from . import probminhash
+from . import densminhash, probminhash, setsketch, superminhash
 from .params import SeqSketcherParams, SketchAlgo
+from .setsketch import SetSketchParams
 
 
-def hashed_kmers(batch: ReadBatch, k: int):
-    """(items [n, P], valid bool[n, P]): Wang hashes of the canonical
-    k-mers; int32 (u32) items for k <= 16, int64 (u64) items above."""
+def hashed_kmers(batch: ReadBatch, k: int, hash_name: str = "wang"):
+    """(items [n, P], valid bool[n, P]): the canonical k-mers through the
+    k-mer hash; int32 (u32) items for k <= 16, int64 (u64) items above."""
     can, valid, _ = kmer_mod.canonical_kmers(batch, k)
-    if k <= 16:
-        return u32_to_i32(wang_hash32(can)), valid
-    return wang_hash64(can), valid
+    if hash_name == "wang":
+        items = wang_hash32(can) if k <= 16 else wang_hash64(can)
+    elif hash_name == "identity":
+        items = can
+    else:
+        raise ValueError(f"unknown kmer hash {hash_name}")
+    return (u32_to_i32(items) if k <= 16 else items), valid
 
 
-def hashed_weighted_kmers(batch: ReadBatch, k: int):
+def hashed_weighted_kmers(batch: ReadBatch, k: int, hash_name: str = "wang"):
     """(items, weights int32, valid): the items of :func:`hashed_kmers` with
     the within-read multiplicity of each position's canonical k-mer."""
-    items, valid = hashed_kmers(batch, k)
+    items, valid = hashed_kmers(batch, k, hash_name)
     weights, _ = exact.multiplicity_per_slot(batch, k)
     return items, weights, valid
 
 
-def _require_prob3a(algo: SketchAlgo) -> None:
+def sketch_items(items: torch.Tensor, valid: torch.Tensor, algo: SketchAlgo,
+                 m: int, seed: int = 0,
+                 setsketch_params: SetSketchParams | None = None):
+    """Per-row signatures of items [n, P] by ``algo``: PROB3A in the items'
+    dtype, SUPER2 int32 (u32), SUPER float64, OPTDENS / REVOPTDENS
+    float32, HLL int32 registers."""
+    if algo == SketchAlgo.PROB3A:
+        return probminhash.probminhash_from_items(items, valid, m,
+                                                  seed=seed)[0]
+    if algo == SketchAlgo.SUPER:
+        return superminhash.superminhash(items, valid, m, seed)[0]
+    if algo == SketchAlgo.SUPER2:
+        return superminhash.superminhash2(items, valid, m, seed)[0]
+    if algo == SketchAlgo.OPTDENS:
+        return densminhash.optdens_signatures(items, valid, m, seed)[0]
+    if algo == SketchAlgo.REVOPTDENS:
+        return densminhash.revoptdens_signatures(items, valid, m, seed)[0]
+    if algo == SketchAlgo.HLL:
+        return setsketch.setsketch_signatures(
+            items, valid, setsketch_params or SetSketchParams(m=m), seed)
+    raise ValueError(f"unhandled algo {algo}")
+
+
+def sketch_items_collection(items: torch.Tensor, valid: torch.Tensor,
+                            algo: SketchAlgo, m: int, seed: int = 0,
+                            setsketch_params: SetSketchParams | None = None):
+    """One signature [m] for all rows of items [n, P] together.  PROB3A
+    counts the items exactly (count/exact.count_from_values) and sketches
+    the distinct ones, weighted by their counts, as one u64 row; HLL
+    merges the per-row registers (their max); the others sketch the
+    flattened items as one row."""
+    if algo == SketchAlgo.HLL:
+        return sketch_items(items, valid, algo, m, seed,
+                            setsketch_params).amax(dim=0)
+    flat, fvalid = items.reshape(1, -1), valid.reshape(1, -1)
     if algo != SketchAlgo.PROB3A:
-        raise NotImplementedError(
-            f"{algo.value} sketches are not ported yet "
-            "(ROADMAP.md Queue 1 item 11: the other sketchers)")
+        return sketch_items(flat, fvalid, algo, m, seed)[0]
+    if flat.dtype == torch.int32:
+        flat = flat.to(torch.int64) & M32
+    kc = exact.count_from_values(torch.where(fvalid[0], flat[0], -1))
+    weights = torch.where(kc.keys != -1, kc.counts, 0)
+    return probminhash.probminhash_signatures(
+        kc.keys[None, :], weights[None, :], m, seed=seed)[0][0]
+
+
+def estimate_jaccard(sig_a: torch.Tensor, sig_b: torch.Tensor,
+                     algo: SketchAlgo, m: int,
+                     setsketch_params: SetSketchParams | None = None):
+    """Jaccard estimate of broadcasting signatures: the fraction of equal
+    slots (float32), or for HLL the inclusion-exclusion of the registers
+    (float64)."""
+    if algo == SketchAlgo.HLL:
+        return setsketch.jaccard(sig_a, sig_b,
+                                 setsketch_params or SetSketchParams(m=m))
+    return probminhash.probjaccard_pair(sig_a, sig_b)
 
 
 @dataclasses.dataclass(frozen=True)
 class Sketcher:
-    """Sequence sketcher; runs on the batch's device.  Only ProbMinHash
-    (PROB3A) is ported so far."""
+    """Sequence sketcher for the six families; runs on the batch's device.
+    ``heavy_cap`` is a legacy knob of the JAX package, ignored."""
 
     params: SeqSketcherParams
+    hash_name: str = "wang"
+    seed: int = 0
+    setsketch_params: SetSketchParams | None = None
+    heavy_cap: int = 2048
+
+    def get_kmer_size(self) -> int:
+        return self.params.kmer_size
+
+    def get_sketch_size(self) -> int:
+        return self.params.sketch_size
+
+    def get_algo(self) -> SketchAlgo:
+        return self.params.algo
 
     def sketch_batch(self, batch: ReadBatch) -> torch.Tensor:
-        """Signatures [n_reads, sketch_size]: int32 (u32) for k <= 16,
-        int64 (u64) above."""
-        _require_prob3a(self.params.algo)
-        items, valid = hashed_kmers(batch, self.params.kmer_size)
-        return probminhash.probminhash_from_items(
-            items, valid, self.params.sketch_size)[0]
+        """Signatures [n_reads, sketch_size] (see :func:`sketch_items`)."""
+        items, valid = hashed_kmers(batch, self.params.kmer_size,
+                                    self.hash_name)
+        return sketch_items(items, valid, self.params.algo,
+                            self.params.sketch_size, self.seed,
+                            self.setsketch_params)
 
     def sketch_collection(self, batch: ReadBatch) -> torch.Tensor:
-        """One signature int64[sketch_size] (u64 bit patterns) for all reads
-        of the batch together: the batch's items are counted exactly
-        (count/exact.count_from_values) and the distinct items, weighted by
-        their counts, go through the u64 tournament as one row."""
-        _require_prob3a(self.params.algo)
-        items, valid = hashed_kmers(batch, self.params.kmer_size)
-        if items.dtype == torch.int32:
-            items = items.to(torch.int64) & M32
-        kc = exact.count_from_values(
-            torch.where(valid.reshape(-1), items.reshape(-1), -1))
-        weights = torch.where(kc.keys != -1, kc.counts, 0)
-        return probminhash.probminhash_signatures(
-            kc.keys[None, :], weights[None, :], self.params.sketch_size)[0][0]
+        """One signature [sketch_size] for all reads of the batch together
+        (see :func:`sketch_items_collection`)."""
+        items, valid = hashed_kmers(batch, self.params.kmer_size,
+                                    self.hash_name)
+        return sketch_items_collection(items, valid, self.params.algo,
+                                       self.params.sketch_size, self.seed,
+                                       self.setsketch_params)
 
     def jaccard(self, sig_a: torch.Tensor, sig_b: torch.Tensor):
-        return probminhash.probjaccard_pair(sig_a, sig_b)
+        return estimate_jaccard(sig_a, sig_b, self.params.algo,
+                                self.params.sketch_size,
+                                self.setsketch_params)
 
 
 def _host_unsigned(sig) -> np.ndarray:
@@ -122,9 +189,10 @@ def compute_probminhash3a_jaccard(weighted_a: dict, weighted_b: dict,
 
 
 def jaccard_one_vs_many(seq_a: ReadBatch, seqs_b: ReadBatch,
-                        params: SeqSketcherParams) -> torch.Tensor:
+                        params: SeqSketcherParams, hash_name: str = "wang",
+                        seed: int = 0) -> torch.Tensor:
     """Estimated Jaccard index of the first read of ``seq_a`` against every
-    read of ``seqs_b``: float32[n_b]."""
-    sk = Sketcher(params=params)
+    read of ``seqs_b``: [n_b]."""
+    sk = Sketcher(params=params, hash_name=hash_name, seed=seed)
     sig_a = sk.sketch_batch(seq_a)[0]
-    return probminhash.probjaccard_one_vs_many(sig_a, sk.sketch_batch(seqs_b))
+    return sk.jaccard(sk.sketch_batch(seqs_b), sig_a[None, :])

@@ -115,5 +115,5 @@ def test_unsigned_order_and_i32_boundary():
 
 @pytest.mark.parametrize("seed", [0, 1, 42, 2**40 + 3, 2**62 + 11])
 def test_slot_consts_match_jax(seed):
-    got = tpmh._slot_consts(200, seed).numpy().astype(np.uint32)
+    got = tpmh._slot_consts(200, seed, device="cpu").numpy().astype(np.uint32)
     assert (got == np.asarray(jpmh._slot_consts(200, seed))).all()

@@ -7,6 +7,8 @@ neighbour index and similarity bit, and byte-identical dump and graph
 files.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -18,9 +20,11 @@ from kmerutils_tpu.io import formats as j_formats
 from kmerutils_tpu.sketch import block as j_block
 from kmerutils_tpu_torch import ann as t_ann
 from kmerutils_tpu_torch import hnsw as t_hnsw
-from kmerutils_tpu_torch.base.sequence import pack_ascii_reads as t_pack
+from kmerutils_tpu_torch.base.sequence import pack_ascii_reads
 from kmerutils_tpu_torch.io import formats as t_formats
 from kmerutils_tpu_torch.sketch import block as t_block
+
+t_pack = functools.partial(pack_ascii_reads, device="cpu")
 
 
 def reads_of(seed: int, n: int = 12):

@@ -78,17 +78,45 @@ def test_crlf_file_matches_jax_cli(tmp_path):
     assert out["torch"] == out["jax"]
 
 
-@pytest.mark.parametrize("argv,why", [
-    (["-a", "SUPER"], "SUPER"),
-])
-def test_unported_options_raise(tmp_path, argv, why):
-    fq = str(tmp_path / "r.fastq")
-    write_reads(fq, 33, 8)
-    base = ["-f", fq, "-s", "16", "-k", "8", "-d", str(tmp_path / "s.bin"),
-            "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=why):
-        tcli.main(base + argv)
-    assert not os.path.exists(tmp_path / "s.bin")
+def write_reads_and_a_short_one(path: str, seed: int, n: int):
+    """:func:`write_reads`, then a 5-base read (no 8-mer: an empty
+    signature, +inf for SUPER / OPTDENS / REVOPTDENS)."""
+    write_reads(path, seed, n)
+    with open(path, "a") as f:
+        f.write("@short\nACGTA\n+\nIIIII\n")
+
+
+@pytest.mark.parametrize("algo", ["SUPER", "SUPER2", "OPTDENS", "REVOPTDENS",
+                                  "HLL"])
+def test_algo_dump_bytes_match_jax_cli(tmp_path, algo):
+    # the JAX CLI's casts, quirks included: SUPER2 as u32, the others
+    # through numpy's cast to u64 (SUPER keeps its integer part, the
+    # densified families' [0, 1) values and +inf go as numpy casts them)
+    fq = str(tmp_path / "reads.fastq")
+    write_reads_and_a_short_one(fq, 33, 60)
+    out = run_both(tmp_path, fq, 8, ["-a", algo], m=16)
+    assert out["torch"] == out["jax"]
+    kk, m, sigs = tformats.read_signature_dump(str(tmp_path / "torch_k8"
+                                                   / "sigs.bin"))
+    assert (kk, m, sigs.shape[0]) == (8, 16, 57)
+    assert sigs.dtype == (np.uint32 if algo == "SUPER2" else np.uint64)
+
+
+def test_block_mode_ignores_algo_like_jax_cli(tmp_path):
+    fq = str(tmp_path / "reads.fastq")
+    write_reads(fq, 35, 40)
+    out = run_both(tmp_path, fq, 8, ["-a", "SUPER", "-b", "64"], m=16)
+    assert out["torch"] == out["jax"]
+
+
+@pytest.mark.parametrize("algo", ["SUPER2", "HLL"])
+def test_algo_ann_brute_bytes_match_jax_cli(tmp_path, algo):
+    fq = str(tmp_path / "reads.fastq")
+    write_reads_and_a_short_one(fq, 39, 50)
+    out = run_both(tmp_path, fq, 8, ["-a", algo, "ann", "-n", "4",
+                                     "--engine", "brute"], m=16,
+                   files=("sigs.bin", "sigs.bin-ann"))
+    assert out["torch"] == out["jax"]
 
 
 @pytest.mark.parametrize("k", [8, 21])

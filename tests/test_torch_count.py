@@ -14,6 +14,7 @@ histogram byte.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -23,10 +24,12 @@ from kmerutils_tpu.base.sequence import pack_ascii_reads as j_pack
 from kmerutils_tpu.count import spill as j_spill
 from kmerutils_tpu.count import stream as j_stream
 from kmerutils_tpu import stats as j_stats
-from kmerutils_tpu_torch.base.sequence import pack_ascii_reads as t_pack
+from kmerutils_tpu_torch.base.sequence import pack_ascii_reads
 from kmerutils_tpu_torch.count import spill as t_spill
 from kmerutils_tpu_torch.count import stream as t_stream
 from kmerutils_tpu_torch import stats as t_stats
+
+t_pack = functools.partial(pack_ascii_reads, device="cpu")
 
 N_BATCHES, READS_PER_BATCH = 5, 6
 
@@ -98,7 +101,7 @@ def torch_stream(reads, k, coords, depth, grow_at, capacity=1 << 13,
                  table=None, start=0):
     folder = t_stream.StagedFolder(
         table if table is not None else t_stream.StreamCountTable.create(
-            capacity, wide=k > 16, coords=coords), depth=depth)
+            capacity, wide=k > 16, coords=coords, device="cpu"), depth=depth)
     offset = sum(len(rs) for rs in reads[:start])
     for i, rs in enumerate(reads[start:], start):
         run = t_stream.batch_entries(t_pack(rs), k,
@@ -134,7 +137,7 @@ def test_jax_stream_continued_in_port(jax_run):
     depth 0 or 1), carried over and folded on in the port, finalizes as the
     all-JAX stream does."""
     k, coords, depth, grow_at = jax_run["cfg"]
-    table = t_stream.table_from_jax(**jax_run["snap"])
+    table = t_stream.table_from_jax(**jax_run["snap"], device="cpu")
     assert table.used == jax_run["snap"]["used"] > 0
     table = torch_stream(jax_run["reads"], k, coords, depth, grow_at,
                          table=table, start=2)
@@ -186,8 +189,9 @@ def test_spill_merge_stream_matches_jax():
     for name, stream_mod, spill_mod in (("jax", j_stream, j_spill),
                                         ("torch", t_stream, t_spill)):
         store = spill_mod.SpillStore(wide=False, coords=True)
-        table = stream_mod.StreamCountTable.create(cap, wide=False,
-                                                   coords=True)
+        table = stream_mod.StreamCountTable.create(
+            cap, wide=False, coords=True,
+            **({"device": "cpu"} if name == "torch" else {}))
         offset = 0
         for i, rs in enumerate(reads):
             if name == "jax":
@@ -214,7 +218,7 @@ def test_spill_merge_stream_matches_jax():
 
 def test_fold_empty_run_and_empty_finalize():
     table = t_stream.StreamCountTable.create(1 << 10, wide=True,
-                                             coords=True)
+                                             coords=True, device="cpu")
     keys, counts, rn, ps, dropped = t_stream.finalize(table, 2,
                                                       count_clamp=0xFFFF)
     assert (keys.dtype, counts.dtype, rn.dtype, len(keys), dropped) == \
@@ -234,10 +238,10 @@ def test_fold_drops_largest_keys_past_capacity():
     reads = batches_of_reads(5)[0]
     run = t_stream.batch_entries(t_pack(reads), 11, np.arange(len(reads)))
     big = t_stream.fold(t_stream.StreamCountTable.create(
-        1 << 13, wide=False, coords=False), run)
+        1 << 13, wide=False, coords=False, device="cpu"), run)
     k_all, c_all, _, _, d0 = t_stream.finalize(big)
     small = t_stream.fold(t_stream.StreamCountTable.create(
-        512, wide=False, coords=False), run)
+        512, wide=False, coords=False, device="cpu"), run)
     k_s, c_s, _, _, dropped = t_stream.finalize(small)
     assert d0 == 0 and dropped == run[0].numel() - 512
     n = len(k_s)
@@ -246,7 +250,8 @@ def test_fold_drops_largest_keys_past_capacity():
 
 
 def test_staged_folder_auto_depth():
-    t = t_stream.StreamCountTable.create(1 << 13, wide=False, coords=False)
+    t = t_stream.StreamCountTable.create(1 << 13, wide=False, coords=False,
+                                         device="cpu")
     assert t_stream.StagedFolder(t).depth == 0
     for cap, depth in ((1 << 27, 1), (1 << 28, 2)):
         # a stride-0 view: the capacity without the memory

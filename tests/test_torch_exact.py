@@ -14,6 +14,7 @@ Tolerance: exact equality of every key, count, coordinate, hash, signature
 and estimate.
 """
 
+import functools
 import os
 import re
 
@@ -31,11 +32,13 @@ from kmerutils_tpu.sketch import jaccard as j_jac
 from kmerutils_tpu.sketch.params import SeqSketcherParams as JParams
 from kmerutils_tpu_torch.base import kmer as t_kmer
 from kmerutils_tpu_torch.base import nthash as t_nthash
-from kmerutils_tpu_torch.base.sequence import pack_ascii_reads as t_pack
+from kmerutils_tpu_torch.base.sequence import pack_ascii_reads
 from kmerutils_tpu_torch.count import exact as t_exact
 from kmerutils_tpu_torch.ops import merge as t_merge
 from kmerutils_tpu_torch.sketch import jaccard as t_jac
 from kmerutils_tpu_torch.sketch.params import SeqSketcherParams as TParams
+
+t_pack = functools.partial(pack_ascii_reads, device="cpu")
 
 # k = 32 keys with an all-ones half: T^16A^16 (0xFFFFFFFF00000000) and
 # A^16T^16 (0x00000000FFFFFFFF) are their own reverse complements

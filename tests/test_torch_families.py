@@ -1,0 +1,463 @@
+"""Parity of the port's other five sketch families (SUPER2, SUPER, OPTDENS,
+REVOPTDENS, HLL) and of their grid reductions with the JAX package, on the
+CPU.
+
+Tolerance: SUPER2, SUPER, OPTDENS and REVOPTDENS signatures are equal bit
+for bit (integer hashing, exact float64 / float32 scaling, minima).  HLL
+registers come from an exact integer maximum followed by float32 -log, log
+and floor, which may differ by an ulp between XLA and torch: a register may
+differ from JAX's only where the float32 value before the floor lies within
+2 ulp of an integer in one of the two packages, and every mismatch is
+proven so (the count is printed; 0 is expected here).  Cardinality and
+Jaccard of the same registers agree to rtol 1e-12 (float64 sums in another
+order).  The plain grid reductions equal a direct numpy statement of them.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from kmerutils_tpu.base import sequence as jseq
+from kmerutils_tpu.sketch import golden
+from kmerutils_tpu.sketch import jaccard as jjac
+from kmerutils_tpu.sketch import setsketch as jss
+from kmerutils_tpu.sketch import superminhash as jsm
+from kmerutils_tpu.sketch.params import SeqSketcherParams as JParams
+from kmerutils_tpu.sketch.params import SketchAlgo as JAlgo
+from kmerutils_tpu_torch.base import sequence as tseq
+from kmerutils_tpu_torch.ops import sketch_grid
+from kmerutils_tpu_torch.sketch import jaccard as tjac
+from kmerutils_tpu_torch.sketch import setsketch as tss
+from kmerutils_tpu_torch.sketch import superminhash as tsm
+from kmerutils_tpu_torch.sketch.params import SeqSketcherParams, SketchAlgo
+
+EXACT = ["SUPER2", "SUPER", "OPTDENS", "REVOPTDENS"]
+
+
+def reads(seed: int, n: int = 10):
+    """Reads of 12-300 bases: the first shorter than k = 21 (no valid
+    k-mer at k = 21, one at k = 8), the second of 4 bases (none at all),
+    a duplicate, and all with fewer k-mers than m = 200, so densification
+    runs many rounds."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(30, 300, size=n)
+    lens[0], lens[1] = 8, 4
+    rs = ["".join(rng.choice(list("ACGT"), size=int(L))) for L in lens]
+    rs[3] = rs[2]
+    return rs
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    a = t.numpy()
+    return a.view(np.uint32) if a.dtype == np.int32 else a
+
+
+def sketchers(algo: str, k: int, m: int, seed: int, hash_name="wang"):
+    return (jjac.Sketcher(params=JParams(kmer_size=k, sketch_size=m,
+                                         algo=JAlgo(algo)),
+                          hash_name=hash_name, seed=seed),
+            tjac.Sketcher(params=SeqSketcherParams(
+                kmer_size=k, sketch_size=m, algo=SketchAlgo(algo)),
+                hash_name=hash_name, seed=seed))
+
+
+def assert_equal_sigs(got: torch.Tensor, want) -> None:
+    want = np.asarray(want)
+    got = to_numpy(got)
+    assert got.shape == want.shape
+    if want.dtype == np.uint32:
+        assert got.dtype == np.uint32
+    assert np.array_equal(got, want.astype(got.dtype))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("k", [8, 21])
+@pytest.mark.parametrize("algo", EXACT)
+def test_sketch_batch_matches_jax(algo, k, seed):
+    rs = reads(10 + k + seed)
+    jsk, tsk = sketchers(algo, k, 200, seed)
+    tb = tseq.pack_ascii_reads(rs, device="cpu")
+    items, valid = tjac.hashed_kmers(tb, k)
+    if k <= 16:                                  # items >= 2^31
+        assert bool(((items.to(torch.int64) & 0xFFFFFFFF) >= 1 << 31).any())
+    else:                                        # items >= 2^63
+        assert bool((items < 0).any())
+    assert not valid[1].any() and (k > 8 or valid[0].any())
+    got = tsk.sketch_batch(tb)
+    assert_equal_sigs(got, jsk.sketch_batch(jseq.pack_ascii_reads(rs)))
+    assert torch.equal(got[2], got[3])
+    if algo in ("OPTDENS", "REVOPTDENS"):
+        assert bool(torch.isfinite(got[4:]).all())   # densified rows
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("k", [8, 21])
+@pytest.mark.parametrize("algo", EXACT)
+def test_sketch_collection_matches_jax(algo, k, seed):
+    rs = reads(20 + k + seed)
+    jsk, tsk = sketchers(algo, k, 200, seed)
+    got = tsk.sketch_collection(tseq.pack_ascii_reads(rs, device="cpu"))
+    want = jsk.sketch_collection(jseq.pack_ascii_reads(rs))
+    assert_equal_sigs(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 13])
+@pytest.mark.parametrize("algo", EXACT)
+def test_small_sketch_sizes_match_jax(algo, m):
+    rs = reads(31)
+    jsk, tsk = sketchers(algo, 8, m, 3)
+    assert_equal_sigs(tsk.sketch_batch(tseq.pack_ascii_reads(rs, device="cpu")),
+                      jsk.sketch_batch(jseq.pack_ascii_reads(rs)))
+
+
+def item_grid(seed: int, wide: bool, n: int = 6, P: int = 90):
+    """Items >= 2^31 / 2^63 among others, a valid mask with an all-invalid
+    row and a row with one valid position."""
+    rng = np.random.default_rng(seed)
+    if wide:
+        items = rng.integers(0, 1 << 64, size=(n, P), dtype=np.uint64)
+        t = torch.from_numpy(items.view(np.int64).copy())
+    else:
+        items = rng.integers(0, 1 << 32, size=(n, P),
+                             dtype=np.uint64).astype(np.uint32)
+        t = torch.from_numpy(items.view(np.int32).copy())
+    valid = rng.random((n, P)) < 0.8
+    valid[1] = False
+    valid[2] = False
+    valid[2, 17] = True
+    return items, t, valid
+
+
+@pytest.mark.parametrize("m", [1, 13, 200])
+@pytest.mark.parametrize("wide", [False, True])
+def test_superminhash_items_match_jax(wide, m):
+    items, t, valid = item_grid(40 + m, wide)
+    tv = torch.from_numpy(valid)
+    sig2, empty = tsm.superminhash2(t, tv, m, 7)
+    want2, jempty = jsm.superminhash2(items, valid, m, 7)
+    assert np.array_equal(to_numpy(sig2), np.asarray(want2))
+    assert np.array_equal(empty.numpy(), np.asarray(jempty))
+    sig, _ = tsm.superminhash(t, tv, m, 7)
+    want = np.asarray(jsm.superminhash(items, valid, m, 7)[0])
+    assert np.array_equal(sig.numpy(), want) and np.isinf(want[1]).all()
+    keys = items[:, :1].astype(np.uint64)
+    perm = tsm._small_perm(torch.arange(m)[None, :],
+                           torch.from_numpy(keys.view(np.int64).copy()), m)
+    jperm = jsm._small_perm(np.arange(m, dtype=np.uint64)[None, :], keys, m)
+    assert np.array_equal(perm.numpy(), np.asarray(jperm))
+    assert np.array_equal(
+        tsm.superminhash_jaccard(sig2[0], sig2).numpy(),
+        np.asarray(jsm.superminhash_jaccard(np.asarray(want2)[0],
+                                            np.asarray(want2)))
+        .astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# HLL: registers under the float32 floor-boundary rule
+# ---------------------------------------------------------------------------
+
+def _prefloor_torch(h: np.ndarray, p) -> np.ndarray:
+    return tss.prefloor(torch.from_numpy(h.astype(np.int64)), p).numpy()
+
+
+def _prefloor_jax(h: np.ndarray, p) -> np.ndarray:
+    u = (jnp.asarray(h >> 8, jnp.uint32).astype(jnp.float32)
+         * np.float32(2.0**-24) + np.float32(2.0**-24))
+    e = -jnp.log(u)
+    return np.asarray((np.float32(np.log(p.a)) - jnp.log(e))
+                      * np.float32(1.0 / np.log(p.b)))
+
+
+def _near_integer(v: np.ndarray) -> np.ndarray:
+    v = v.astype(np.float32)
+    return np.abs(v - np.round(v)) <= 2 * np.spacing(np.abs(v))
+
+
+def assert_registers_match(got: np.ndarray, want: np.ndarray,
+                           h_best: np.ndarray, p, what: str) -> int:
+    """got / want registers [n, m]; h_best the exact u32 maximum hashes.
+    Returns the number of mismatching registers, each proven to sit on a
+    float32 floor boundary in one of the two packages."""
+    bad = got != want
+    if bad.any():
+        h = h_best[bad]
+        edge = _near_integer(_prefloor_torch(h, p)) \
+            | _near_integer(_prefloor_jax(h, p))
+        assert edge.all(), (what, h[~edge][:8])
+        assert (np.abs(got[bad].astype(np.int64)
+                       - want[bad].astype(np.int64)) <= 1).all()
+    print(f"HLL {what}: {int(bad.sum())} registers on a float32 floor "
+          f"boundary differ from JAX")
+    return int(bad.sum())
+
+
+def hll_h_best(items: np.ndarray, valid: np.ndarray, m: int, seed: int):
+    """The JAX package's per-register maximum hash, stated in numpy."""
+    it32 = items if items.dtype == np.uint32 else \
+        (items ^ (items >> np.uint64(32))).astype(np.uint32)
+    salts = tss.register_salts(m, seed, "cpu").numpy().view(np.uint32)
+    h = numpy_hll_hashes(it32, salts)
+    return np.where(valid[:, :, None], h, np.uint32(0)).max(axis=1)
+
+
+@pytest.mark.parametrize("m", [13, 200, 4096])
+@pytest.mark.parametrize("wide", [False, True])
+def test_setsketch_registers_match_jax(wide, m):
+    items, t, valid = item_grid(50 + m, wide, n=4, P=60)
+    p, jp = tss.SetSketchParams(m=m), jss.SetSketchParams(m=m)
+    got = tss.setsketch_signatures(t, torch.from_numpy(valid), p, 5).numpy()
+    want = np.asarray(jss.setsketch_signatures(items, valid, jp, 5))
+    assert got.dtype == np.int32 and want.dtype == np.uint16
+    assert (got[1] == 0).all() and (want[1] == 0).all()
+    assert_registers_match(got, want.astype(np.int32),
+                           hll_h_best(items, valid, m, 5), p,
+                           f"wide={wide} m={m}")
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("k", [8, 21])
+def test_hll_sketcher_matches_jax(k, seed):
+    rs = reads(60 + k + seed)
+    jsk, tsk = sketchers("HLL", k, 200, seed)
+    tb = tseq.pack_ascii_reads(rs, device="cpu")
+    got = tsk.sketch_batch(tb).numpy()
+    want = np.asarray(jsk.sketch_batch(jseq.pack_ascii_reads(rs)))
+    items, valid = (np.asarray(a) for a in jjac.hashed_kmers(
+        jseq.pack_ascii_reads(rs), k))
+    h_best = hll_h_best(items, valid, 200, seed)
+    assert_registers_match(got, want.astype(np.int32), h_best,
+                           tss.SetSketchParams(m=200), f"k={k} seed={seed}")
+    coll = tsk.sketch_collection(tb).numpy()
+    jcoll = np.asarray(jsk.sketch_collection(jseq.pack_ascii_reads(rs)))
+    assert_registers_match(coll[None], jcoll[None].astype(np.int32),
+                           h_best.max(axis=0)[None], tss.SetSketchParams(
+                               m=200), f"collection k={k} seed={seed}")
+
+
+def test_setsketch_estimators_match_jax():
+    rng = np.random.default_rng(9)
+    p, jp = tss.SetSketchParams(m=256), jss.SetSketchParams(m=256)
+    regs = np.asarray(jss.setsketch_signatures(
+        rng.integers(0, 1 << 64, size=(3, 500), dtype=np.uint64),
+        np.ones((3, 500), bool), jp, 2))
+    t = torch.from_numpy(regs.astype(np.int32))
+    np.testing.assert_allclose(tss.cardinality(t, p).numpy(),
+                               np.asarray(jss.cardinality(regs, jp)),
+                               rtol=1e-12)
+    np.testing.assert_allclose(
+        tss.jaccard(t[0], t[1:], p).numpy(),
+        np.asarray(jss.jaccard(regs[0], regs[1:], jp)), rtol=1e-12)
+    assert torch.equal(tss.merge(t[0], t[1]),
+                       torch.from_numpy(np.asarray(
+                           jss.merge(regs[0], regs[1])).astype(np.int32)))
+
+
+# ---------------------------------------------------------------------------
+# one against many, and the identity hash
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("algo,hash_name", [("PROB3A", "wang"),
+                                            ("SUPER2", "wang"),
+                                            ("HLL", "wang"),
+                                            ("SUPER2", "identity")])
+def test_jaccard_one_vs_many_matches_jax(algo, hash_name):
+    rs = reads(70)
+    jp = JParams(kmer_size=8, sketch_size=64, algo=JAlgo(algo))
+    tp = SeqSketcherParams(kmer_size=8, sketch_size=64,
+                           algo=SketchAlgo(algo))
+    want = np.asarray(jjac.jaccard_one_vs_many(
+        jseq.pack_ascii_reads(rs[2:3]), jseq.pack_ascii_reads(rs), jp,
+        hash_name=hash_name, seed=4))
+    got = tjac.jaccard_one_vs_many(
+        tseq.pack_ascii_reads(rs[2:3], device="cpu"),
+        tseq.pack_ascii_reads(rs, device="cpu"), tp, hash_name=hash_name,
+        seed=4).numpy()
+    if algo == "HLL":
+        np.testing.assert_allclose(got, want, rtol=1e-12)
+    else:
+        assert np.array_equal(got, want.astype(np.float32))
+    assert got[2] == got[3] == 1.0
+
+
+def test_identity_hash_sketch_matches_jax():
+    rs = reads(71)
+    for k in (8, 21):
+        jsk, tsk = sketchers("SUPER", k, 32, 1, hash_name="identity")
+        assert_equal_sigs(
+            tsk.sketch_batch(tseq.pack_ascii_reads(rs, device="cpu")),
+            jsk.sketch_batch(jseq.pack_ascii_reads(rs)))
+    with pytest.raises(ValueError, match="unknown kmer hash"):
+        tjac.hashed_kmers(tseq.pack_ascii_reads(rs, device="cpu"), 8,
+                          "md5")
+
+
+# ---------------------------------------------------------------------------
+# the grid reductions' plain versions against numpy
+# ---------------------------------------------------------------------------
+
+def numpy_hll_hashes(x: np.ndarray, salts: np.ndarray) -> np.ndarray:
+    with np.errstate(over="ignore"):
+        h = (x[:, :, None] ^ salts[None, None, :]) * np.uint32(0x9E3779B1)
+        h ^= h >> np.uint32(15)
+        return h * np.uint32(0x85EBCA77)
+
+
+def numpy_super_keys(x, a, b, m: int) -> np.ndarray:
+    nbits = max((m - 1).bit_length(), 1)
+    mask = np.uint32((1 << nbits) - 1)
+    sh = np.uint32(max(nbits // 2, 1))
+    sc = tsm.slot_consts(m, 0, "cpu").numpy().view(np.uint32)
+    a3, b3 = a[:, :, None], b[:, :, None]
+
+    def enc(v):
+        v = ((v * a3) ^ b3) & mask
+        return (v ^ (v >> sh)) & mask
+
+    with np.errstate(over="ignore"):
+        pi = enc(np.arange(m, dtype=np.uint32)[None, None, :])
+        for _ in range(4):
+            pi = np.where(pi >= m, enc(pi), pi)
+        pi = np.minimum(pi, np.uint32(m - 1))
+        h = (x[:, :, None] ^ sc) * np.uint32(0x85EBCA77)
+        h ^= h >> np.uint32(13)
+        h *= np.uint32(0xC2B2AE3D)
+        h ^= h >> np.uint32(16)
+    return (pi << np.uint32(32 - nbits)) | (h >> np.uint32(nbits))
+
+
+@pytest.mark.parametrize("m", [1, 13, 200])
+def test_plain_grid_reductions_match_numpy(m):
+    rng = np.random.default_rng(80 + m)
+    n, P = 5, 40
+    x, a, b = (rng.integers(0, 1 << 32, size=(n, P), dtype=np.uint64)
+               .astype(np.uint32) for _ in range(3))
+    a |= np.uint32(1)
+    valid = rng.random((n, P)) < 0.7
+    valid[3] = False
+    t = [torch.from_numpy(v.view(np.int32).copy()) for v in (x, a, b)]
+    tv = torch.from_numpy(valid)
+    sc = tsm.slot_consts(m, 0, "cpu")
+    want_min = np.where(valid[:, :, None], numpy_super_keys(x, a, b, m),
+                        np.uint32(0xFFFFFFFF)).min(axis=1)
+    got_min = sketch_grid.grid_min(*t, tv, sc)
+    assert np.array_equal(to_numpy(got_min), want_min)
+    salts = sc.numpy().view(np.uint32)
+    want_max = np.where(valid[:, :, None], numpy_hll_hashes(x, salts),
+                        np.uint32(0)).max(axis=1)
+    got_max = sketch_grid.grid_max(t[0], tv, sc)
+    assert np.array_equal(to_numpy(got_max), want_max)
+    assert (want_min[3] == 0xFFFFFFFF).all() and (want_max[3] == 0).all()
+    with pytest.raises(ValueError, match="valid"):
+        sketch_grid.grid_max(t[0], tv[:, :-1], sc)
+
+
+def test_grid_plan_covers_rows():
+    pl = sketch_grid.plan(1, 6_100_000, 200)
+    assert pl.spans * pl.span >= 6_100_000 > (pl.spans - 1) * pl.span
+    assert pl.spans > 132 and pl.slots * pl.subsets <= 256
+    pl = sketch_grid.plan(1024, 5993, 4096)
+    assert (pl.slots, pl.groups, pl.spans) == (256, 16, 1)
+    pl = sketch_grid.plan(3, 100, 13)
+    assert (pl.slots, pl.subsets, pl.spans) == (13, 19, 1)
+
+
+@pytest.mark.parametrize("m", [1, 13, 200])
+def test_grid_work_counts_the_walk_rounds_the_data_needs(m):
+    """roofline.grid_work: G2 6 operations a valid pair; G1 10 a pair and
+    5 a permutation round, the walk's rounds counted from the data, as a
+    numpy cycle walk counts them."""
+    from kmerutils_tpu_torch import roofline
+    rng = np.random.default_rng(90 + m)
+    n, P = 4, 50
+    x, a, b = (rng.integers(0, 1 << 32, size=(n, P), dtype=np.uint64)
+               .astype(np.uint32) for _ in range(3))
+    a |= np.uint32(1)
+    valid = rng.random((n, P)) < 0.7
+    valid[2] = False
+    nbits = max((m - 1).bit_length(), 1)
+    mask = np.uint32((1 << nbits) - 1)
+    sh = np.uint32(max(nbits // 2, 1))
+    a3, b3 = a[valid][:, None], b[valid][:, None]
+    with np.errstate(over="ignore"):
+        v = ((np.arange(m, dtype=np.uint32)[None, :] * a3) ^ b3) & mask
+        v = (v ^ (v >> sh)) & mask
+        walks = 0
+        for _ in range(4):
+            need = v >= m
+            walks += int(need.sum())
+            w = ((v * a3) ^ b3) & mask
+            v = np.where(need, (w ^ (w >> sh)) & mask, v)
+    pairs = int(valid.sum()) * m
+    t = [torch.from_numpy(z.view(np.int32).copy()) for z in (x, a, b)]
+    tv = torch.from_numpy(valid)
+    sc = tsm.slot_consts(m, 0, "cpu")
+    ops, nbytes = roofline.grid_work("grid_min", (*t, tv, sc))
+    assert ops == 10 * pairs + 5 * (pairs + walks)
+    assert nbytes == n * P * 13 + n * m * 4
+    assert roofline.grid_work("grid_max", (t[0], tv, sc)) == (
+        6 * pairs, n * P * 5 + n * m * 4)
+    assert walks > 0          # no m here is a power of two
+
+
+# ---------------------------------------------------------------------------
+# statistics against the golden implementation of the published algorithm
+# ---------------------------------------------------------------------------
+
+def test_superminhash2_estimates_like_golden():
+    """The port's SUPER2 against sketch/golden.py's SuperMinHash over 24
+    seeds: both estimate J = 0.5 without bias and with at most
+    binomial-order spread (tests/test_sketch.py's rule for the JAX
+    package)."""
+    rng = np.random.default_rng(17)
+    pool = rng.integers(1, 2**62, 120, dtype=np.uint64)
+    a, b, jex = pool[:60], pool[20:80], 0.5
+    m, trials = 64, 24
+    ta = torch.from_numpy(a.view(np.int64).copy())[None]
+    tb = torch.from_numpy(b.view(np.int64).copy())[None]
+    ones = torch.ones((1, 60), dtype=torch.bool)
+    est_t, est_g = [], []
+    for s in range(trials):
+        sa, _ = tsm.superminhash2(ta, ones, m, s)
+        sb, _ = tsm.superminhash2(tb, ones, m, s)
+        est_t.append(float(tsm.superminhash_jaccard(sa[0], sb[0])))
+        _, wa = golden.superminhash_golden(a, m, s)
+        _, wb = golden.superminhash_golden(b, m, s)
+        est_g.append(float((wa == wb).mean()))
+    tol = 3.5 * np.sqrt(jex * (1 - jex) / m / trials) + 0.02
+    ref_sd = np.sqrt(jex * (1 - jex) / m)
+    for est in (est_t, est_g):
+        assert abs(np.mean(est) - jex) < tol
+        assert np.std(est) < 1.7 * ref_sd
+
+
+# ---------------------------------------------------------------------------
+# every entry point that places data defaults to the card
+# ---------------------------------------------------------------------------
+
+def _device_entry_points():
+    from kmerutils_tpu_torch.aa import kmeraa
+    from kmerutils_tpu_torch.base import nthash, sequence
+    from kmerutils_tpu_torch.count import stream
+    from kmerutils_tpu_torch.io import fastx
+    from kmerutils_tpu_torch.ops import tournament
+    return [sequence.batch_from_numpy, sequence.pack_codes,
+            sequence.pack_ascii_reads, fastx.read_batches_overlapped,
+            stream.StreamCountTable.create, stream.table_from_jax,
+            nthash.nthash_kmers_ascii, tournament.slot_consts,
+            kmeraa.pack_aa_reads]
+
+
+@pytest.mark.parametrize("fn", _device_entry_points(),
+                         ids=lambda f: f.__qualname__)
+def test_device_defaults_to_cuda(fn):
+    import inspect
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_default_device_fails_loudly_without_a_card():
+    # with no CUDA device the default must raise, not fall back to the CPU
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to fail")
+    with pytest.raises((RuntimeError, AssertionError)):
+        tseq.pack_ascii_reads(["ACGTACGT"])

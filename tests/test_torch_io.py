@@ -77,7 +77,7 @@ def test_overlapped_surfaces_parse_errors(tmp_path):
     p.write_bytes(b"not a fastx file\n")
     # the native parser raises RuntimeError, the Python one ValueError
     with pytest.raises((RuntimeError, ValueError)):
-        list(tfastx.read_batches_overlapped(str(p)))
+        list(tfastx.read_batches_overlapped(str(p), device="cpu"))
 
 
 def test_crlf_records_parse_alike(tmp_path, monkeypatch):

@@ -27,7 +27,7 @@ def reads(seed: int, n: int = 9):
 @pytest.fixture(scope="module")
 def batches():
     rs = reads(11)
-    return jseq.pack_ascii_reads(rs), tseq.pack_ascii_reads(rs)
+    return jseq.pack_ascii_reads(rs), tseq.pack_ascii_reads(rs, device="cpu")
 
 
 def words_u32(batch: tseq.ReadBatch) -> np.ndarray:
@@ -58,7 +58,7 @@ def test_pack_codes_matches_jax(width):
     codes = rng.integers(0, 4, size=(5, width), dtype=np.uint8)
     lengths = np.array([width, 1, 16, 17, 0], np.int32)
     jb = jseq.pack_codes(codes, lengths)
-    tb = tseq.pack_codes(codes, lengths)
+    tb = tseq.pack_codes(codes, lengths, device="cpu")
     assert tb.words.shape == tuple(jb.words.shape)
     assert tb.words.shape[1] == -(-width // 16) + 1
     assert (words_u32(tb) == np.asarray(jb.words)).all()
@@ -67,7 +67,7 @@ def test_pack_codes_matches_jax(width):
 
 def test_pack_ascii_reads_rejects_non_acgt():
     with pytest.raises(ValueError):
-        tseq.pack_ascii_reads(["ACGN"])
+        tseq.pack_ascii_reads(["ACGN"], device="cpu")
 
 
 @pytest.mark.parametrize("k", KS)
@@ -118,7 +118,7 @@ def test_canonical_of_high_values_matches_jax(k):
 def test_kmer_values_match_read_text():
     rng = np.random.default_rng(14)
     r = "".join(rng.choice(list("ACGT"), size=150))
-    tb = tseq.pack_ascii_reads([r])
+    tb = tseq.pack_ascii_reads([r], device="cpu")
     km, valid = tkmer.kmers_u64(tb, 21)
     for p in (0, 5, len(r) - 21):
         assert int(km[0, p]) == jkmer.kmer_value_from_str(r[p : p + 21])

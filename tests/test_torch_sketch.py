@@ -20,7 +20,7 @@ from kmerutils_tpu.sketch.params import SeqSketcherParams as JParams
 from kmerutils_tpu_torch.base import sequence as tseq
 from kmerutils_tpu_torch.sketch import jaccard as tjac
 from kmerutils_tpu_torch.sketch import probminhash as tpmh
-from kmerutils_tpu_torch.sketch.params import SeqSketcherParams, SketchAlgo
+from kmerutils_tpu_torch.sketch.params import SeqSketcherParams
 from test_torch_tournament import assert_exact_or_near_ties, first_position
 
 M = 200
@@ -141,7 +141,7 @@ def reads(seed: int, n: int = 12):
 def test_hashed_kmers_match_jax(k):
     rs = reads(4, 5)
     ji, jv = jjac.hashed_kmers(jseq.pack_ascii_reads(rs), k)
-    ti, tv = tjac.hashed_kmers(tseq.pack_ascii_reads(rs), k)
+    ti, tv = tjac.hashed_kmers(tseq.pack_ascii_reads(rs, device="cpu"), k)
     assert ti.dtype == (torch.int32 if k <= 16 else torch.int64)
     assert (tv.numpy() == np.asarray(jv)).all()
     assert (to_numpy(ti) == np.asarray(ji)).all()
@@ -153,7 +153,7 @@ def test_sketch_batch_matches_jax(k):
     jsk = jjac.Sketcher(params=JParams(kmer_size=k, sketch_size=M))
     tsk = tjac.Sketcher(params=SeqSketcherParams(kmer_size=k, sketch_size=M))
     want = np.asarray(jsk.sketch_batch(jseq.pack_ascii_reads(rs)))
-    got = to_numpy(tsk.sketch_batch(tseq.pack_ascii_reads(rs)))
+    got = to_numpy(tsk.sketch_batch(tseq.pack_ascii_reads(rs, device="cpu")))
     assert got.dtype == want.dtype and got.shape == want.shape
     assert (got[0] == 0).all() and (got[1] == got[2]).all()
     ji, jv = jjac.hashed_kmers(jseq.pack_ascii_reads(rs), k)
@@ -178,14 +178,7 @@ def test_jaccard_of_half_read_is_near_theory():
     full = "".join(rng.choice(list("ACGT"), size=2000))
     tsk = tjac.Sketcher(params=SeqSketcherParams(kmer_size=11,
                                                  sketch_size=256))
-    sig = tsk.sketch_batch(tseq.pack_ascii_reads([full, full[:1000], full]))
+    sig = tsk.sketch_batch(tseq.pack_ascii_reads([full, full[:1000], full],
+                                                device="cpu"))
     assert abs(float(tsk.jaccard(sig[0], sig[1])) - 0.5) < 0.12
     assert float(tsk.jaccard(sig[0], sig[2])) == 1.0
-
-
-@pytest.mark.parametrize("algo", ["SUPER", "HLL"])
-def test_unported_algorithms_raise(algo):
-    tsk = tjac.Sketcher(params=SeqSketcherParams(
-        kmer_size=8, sketch_size=16, algo=SketchAlgo(algo)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsk.sketch_batch(tseq.pack_ascii_reads(["ACGTACGTACGT"]))

@@ -51,7 +51,7 @@ def assert_exact_or_near_ties(got, want, x32, weights, m, seed=0,
     slot must be a near-tie, and mismatches must stay rare."""
     got, want = np.asarray(got), np.asarray(want)
     bad = np.argwhere(got != want)
-    sc = T.slot_consts(m, seed).numpy()
+    sc = T.slot_consts(m, seed, device="cpu").numpy()
     for r, s in bad:
         pa, pb = int(got[r, s]), int(want[r, s])
         assert near_tie(x32[r, pa], weights[r, pa], x32[r, pb],
@@ -182,7 +182,7 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 def test_near_tie_check_accepts_ties_and_rejects_others():
     # search a pair of draws with weights 1 and 2 that meet within 1 ulp
-    sc = int(T.slot_consts(1).numpy()[0])
+    sc = int(T.slot_consts(1, device="cpu").numpy()[0])
     x = np.arange(1 << 16, dtype=np.uint32)
     e1 = draw_f32(x, sc, np.ones(x.size, np.float32))
     e2 = draw_f32(x, sc, np.full(x.size, 0.5, np.float32))
@@ -338,7 +338,7 @@ def tie_case(wide: bool, slot: int = 3, n: int = 3, P: int = 600):
             items[r, p] = items[r, p - 1]
             if rng.random() < 0.5:
                 w[r, p] = w[r, p - 1]
-    sc = int(T.slot_consts(M)[slot])
+    sc = int(T.slot_consts(M, device="cpu")[slot])
     x5, x9 = (unit_draw_item(sc, h) for h in (0xFFFFFFFF, 0xFFFFFF00))
     top = 0x9ABCDEF0
     items[0, 5] = (x5 ^ top) | (top << 32) if wide else x5
@@ -351,7 +351,7 @@ def tie_case(wide: bool, slot: int = 3, n: int = 3, P: int = 600):
 
 
 def test_unit_draw_and_repeats_match_jax():
-    sc = int(T.slot_consts(M)[3])
+    sc = int(T.slot_consts(M, device="cpu")[3])
     for wide in (False, True):
         items, w, valid, winv = tie_case(wide)
         live = valid.any(axis=1)
