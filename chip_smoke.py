@@ -110,7 +110,33 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    kernel replaced by its plain version) and read by read on the CPU: the
    uncast signatures equal (HLL under the floor rule) and the dump equals
    them cast as the JAX CLI casts them; ``SketcherAA`` of all six families
-   at 1024 x 2000 residues, k=5 and k=9, equal to the plain path.
+   at 1024 x 2000 residues, k=5 and k=9, equal to the plain path, and 64
+   sampled sequences equal to the same sequences sketched on the CPU
+   before any cast (HLL under the floor rule);
+12. the modules without a kernel of their own, and seqminhash through G1:
+   ``sketch_items_invhash`` (bottom-k MinHash) at the bench shape, k=21
+   (u64) and k=11 (u32), and ``bottomk_sketch`` of raw u64 hashes (half
+   >= 2^63, duplicates, all-ones values, empty rows, size > P), card equal
+   to CPU and timed; ``anchor_computation`` over phase 5's ONT-like file
+   (k=21, window 1000, overlap 200, nbkmer 16) on the card, persisted
+   through the port's RespServer on loopback (anchor count, order, and 64
+   sampled anchors read back through the wire equal to the same reads
+   anchored on the CPU; wall, Mbases/s, peak device memory), then both
+   seqminhash functions over a batch of that file at k=16 and k=12
+   (SuperMinHash through G1 equal to the plain path on the card, bottom-k
+   on 64 sampled rows equal to the CPU's); G1's counter is set to 0
+   before the anchors and must be > 0 after seqminhash; ``qualityloader
+   -f ... -p 0`` run as a subprocess over the same reads with seeded
+   qualities over bytes 0x21-0x5A (its port read from its second line; GetQRead,
+   GetQBlock and GetQBase for 64 sampled reads equal to the remap of the
+   file's quality lines written out in numpy; then Exit), with the store's
+   load time and ``memory_bits``; ``BloomFilter`` and ``CountingBloom``
+   (2^28 slots, 4 probes) over every 16-mer occurrence of phase 8's
+   bacterial file, their slots equal to a numpy oracle (``np.bincount``
+   over probe indices computed in numpy; clamped at 255), ``contains`` /
+   ``estimate_count`` on a million keys equal to the oracle's, and
+   ``dispatch`` to 4 and 8 shards (the 16-mers and 16 M random u64 keys)
+   card equal to CPU; insert and dispatch rates timed.
 
 With ``--baseline ROOT`` (the tree of another commit, e.g. unpacked from
 ``git archive`` into a git-ignored directory) the script runs phases 1-2,
@@ -125,7 +151,7 @@ of each package over phase 5's ONT-like file (wall ms, device ms, the
 tournament kernels' device ms).  It prints one JSON line per result and
 the card line, and no ``ok`` line.
 
-The temporary files of phases 5-11 live in one directory, removed at the
+The temporary files of phases 5-12 live in one directory, removed at the
 end.  The last three lines are the card's name and power limit, the
 kernels' JSON record (each kernel's launches on its path, exactness, ms,
 plain_ms, bound_ms with bound_by, and library_ms or null) and
@@ -981,19 +1007,24 @@ def merge_profile(torch, fn, iters: int = 10) -> dict:
     call launches one merge kernel and nothing else (no copy, no memset),
     so every device event must be a merge kernel and each is one call;
     the profiler can lose the first events of a session late in a long
-    process (see k7_profile), so the time is the mean of the last half."""
+    process (see k7_profile), so the time is the mean of the last half.
+    A session that recorded no device event at all is run again, at most
+    twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = sorted((ev for ev in prof.events()
-                  if ev.device_type == DeviceType.CUDA),
-                 key=lambda ev: ev.time_range.start)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA),
+                     key=lambda ev: ev.time_range.start)
+        if evs:
+            break
     names = {short_name(ev.name) for ev in evs}
     check(all(n.startswith("merge_kernel") for n in names)
           and iters // 2 <= len(evs) <= iters,
@@ -1525,25 +1556,32 @@ def k7_profile(torch, fn, iters: int = 10) -> dict:
     half of the calls.  The profiler on the H100 machines can lose the
     first device events of a session late in a long process (one to a
     few, seen in every session of a ``--baseline`` run), so the first
-    calls are not counted."""
+    calls are not counted.  A session can also lose all its device events
+    (seen in phase 9 of whole runs): such a session is run again,
+    at most twice, as profile_sketch.profile does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    calls, cur = [], []
-    for ev in sorted((ev for ev in prof.events()
-                      if ev.device_type == DeviceType.CUDA),
-                     key=lambda ev: ev.time_range.start):
-        cur.append(ev)
-        if ev.name.startswith("Memcpy"):
-            calls.append(cur)
-            cur = []
-    calls = calls[-(iters // 2):]
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        calls, cur = [], []
+        for ev in sorted((ev for ev in prof.events()
+                          if ev.device_type == DeviceType.CUDA),
+                         key=lambda ev: ev.time_range.start):
+            cur.append(ev)
+            if ev.name.startswith("Memcpy"):
+                calls.append(cur)
+                cur = []
+        calls = calls[-(iters // 2):]
+        if len(calls) == iters // 2:
+            break
+        print(f"the profiler kept {len(calls)} K7 calls of {iters} "
+              f"(session {attempt + 1}); profiling again", flush=True)
     check(len(calls) == iters // 2, f"the profiler kept {len(calls)} K7 "
           f"calls of {iters}")
     us = {"kernel": 0.0, "memset": 0.0, "copy": 0.0}
@@ -2283,14 +2321,21 @@ def family_dump_check(torch, rng, dump: str, clean, algo: str, m: int,
 def aa_checks(torch, rng, card: str, n: int = 1024, L: int = 2000,
               m: int = 200) -> dict:
     """SketcherAA (all six families) at n x L residues, k = 5 and 9, equal
-    to the plain path on the card; its sketch_batch times."""
+    to the plain path on the card, and on 64 sampled sequences equal to
+    the same sequences sketched on the CPU (which the tests hold to the JAX
+    package), before any cast; HLL registers under hll_agree's float32
+    floor-boundary rule.  Returns its sketch_batch times."""
     from kmerutils_tpu_torch.aa import kmeraa
+    from kmerutils_tpu_torch.ops import sketch_grid as G
+    from kmerutils_tpu_torch.sketch import setsketch
     from kmerutils_tpu_torch.sketch.params import SeqSketcherParams, SketchAlgo
     letters = np.frombuffer(kmeraa.alphabet.BASES, np.uint8)
     seqs = [letters[c].tobytes()
             for c in rng.integers(0, 20, size=(n, L))]
     batch = kmeraa.pack_aa_reads(seqs, device="cuda")
-    out = {}
+    pick = np.sort(rng.choice(n, size=64, replace=False))
+    host = kmeraa.pack_aa_reads([seqs[i] for i in pick], device="cpu")
+    out = {"hll_registers_differ": 0}
     for k in (5, 9):
         for algo in SketchAlgo:
             sk = kmeraa.SketcherAA(SeqSketcherParams(
@@ -2301,6 +2346,18 @@ def aa_checks(torch, rng, card: str, n: int = 1024, L: int = 2000,
             torch.cuda.synchronize()
             check(torch.equal(got, want),
                   f"SketcherAA {algo.value} k={k} != plain path")
+            card_rows = got[torch.from_numpy(pick).cuda()].cpu()
+            cpu = sk.sketch_batch(host)
+            what = f"SketcherAA {algo.value} k={k}, 64 sampled sequences"
+            if algo == SketchAlgo.HLL:
+                out["hll_registers_differ"] += hll_agree(
+                    torch, card_rows, cpu, lambda: G.grid_max(
+                        *setsketch.grid_max_args(
+                            *kmeraa.hashed_kmers_aa(host, k), m)), m, what)
+            else:
+                check(card_rows.dtype == cpu.dtype
+                      and torch.equal(card_rows, cpu),
+                      f"{what}: the card's signatures != the CPU's")
             out[f"{algo.value}_k{k}_ms"] = cuda_ms(
                 torch, lambda: sk.sketch_batch(batch), 3, warmup=1)
     print(json.dumps({"timing": "sketcher_aa", "sequences": n,
@@ -2357,6 +2414,378 @@ def sketch_families(torch, rng, tmp: str, card: str, dev, fq8: str, clean8,
     out.update(launches=launches, cli_wall_s=walls,
                seconds=time.perf_counter() - t_phase)
     print(f"phase 11: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: bottom-k MinHash, seqminhash, anchors over RESP, the quality
+# CLI, shard dispatch and the filters
+# ---------------------------------------------------------------------------
+
+ANCHOR_PARAMS = dict(window=1000, overlap=200, nbkmer=16, kmer_size=21)
+FILTER_LOG2_SLOTS = 28
+FILTER_NB_HASH = 4
+
+
+def bottomk_checks(torch, rng, card: str, dev, bench=(1024, 6000),
+                   m: int = 200) -> dict:
+    """sketch_items_invhash (bottomk_sketch of Wang-hashed forward k-mers)
+    at the bench shape, k = 21 (u64 hashes) and k = 11 (u32 hashes), and
+    bottomk_sketch of raw u64 hashes (half >= 2^63, runs of duplicates,
+    all-ones values, all-invalid rows): card equal to CPU; timed with CUDA
+    events."""
+    from kmerutils_tpu_torch.base import kmer
+    from kmerutils_tpu_torch.sketch import minhash
+    from kmerutils_tpu_torch.base.sequence import pack_codes
+    batch = pack_codes(rng.integers(0, 4, size=bench, dtype=np.uint8),
+                       device=dev)
+    out = {}
+    for k in (21, 11):
+        wide = k > 16
+        km, valid = (kmer.kmers_u64 if wide else kmer.kmers_u32)(batch, k)
+
+        def fn():
+            return minhash.sketch_items_invhash(km, valid, m, wide=wide)
+        s, c = fn()
+        hs, hc = minhash.sketch_items_invhash(km.cpu(), valid.cpu(), m,
+                                              wide=wide)
+        check(torch.equal(s.cpu(), hs) and torch.equal(c.cpu(), hc)
+              and int(c.sum()) > 0, f"sketch_items_invhash k={k}: card != "
+              f"CPU at the bench shape")
+        out[f"invhash_k{k}_ms"] = cuda_ms(torch, fn, 5)
+    h = torch.from_numpy(rng.integers(0, 1 << 64, size=(512, 4096),
+                                      dtype=np.uint64).view(np.int64))
+    h[:, 2048:3072] = h[:, :1024]
+    h[::5, 17] = -1
+    v = torch.from_numpy(rng.random((512, 4096)) < 0.9)
+    v[3] = False
+    for size in (16, 200, 5000):
+        s, c = minhash.bottomk_sketch(h.to(dev), v.to(dev), size)
+        hs, hc = minhash.bottomk_sketch(h, v, size)
+        check(s.shape == (512, min(size, 4096)) and torch.equal(s.cpu(), hs)
+              and torch.equal(c.cpu(), hc),
+              f"bottomk_sketch size {size}: card != CPU")
+    h, v = h.to(dev), v.to(dev)
+    out["bottomk_u64_512x4096_ms"] = cuda_ms(
+        torch, lambda: minhash.bottomk_sketch(h, v, 200), 5)
+    print(json.dumps({"timing": "bottomk", "rows": bench[0],
+                      "bases": bench[1], "m": m, **out, "card": card}),
+          flush=True)
+    return out
+
+
+def seqminhash_run(torch, batch, host, k: int, m: int = 200) -> None:
+    """Both seqminhash functions over a batch on the card: SuperMinHash
+    (through G1) equal to the plain path on the card, bottom-k on 64
+    sampled rows equal to the same rows on the CPU (``host``: those rows
+    and their indices)."""
+    from kmerutils_tpu_torch.sketch import seqminhash as sq
+    rows = torch.from_numpy(host[1]).to(batch.device)
+    start, end = 100, 4000
+    sig = sq.sketch_seqrange_superminhash(batch, start, end, k, m)
+    with plain_kernels():
+        want = sq.sketch_seqrange_superminhash(batch, start, end, k, m)
+    check(torch.equal(sig, want) and bool(torch.isfinite(sig).all()),
+          f"seqminhash superminhash k={k}: kernels != plain path")
+    hs, hc = sq.sketch_seqrange_minhash(batch, start, end, k, m)
+    ws, wc = sq.sketch_seqrange_minhash(host[0], start, end, k, m)
+    check(torch.equal(hs[rows].cpu(), ws) and torch.equal(hc[rows].cpu(), wc)
+          and int(wc.sum()) > 0, f"seqminhash minhash k={k}: card != CPU on "
+          f"64 sampled rows")
+
+
+def anchors_run(torch, rng, card: str, fq: str, clean, dev) -> dict:
+    """anchor_computation over ``fq`` on the card, persisted through the
+    port's RespServer on loopback: the anchor count, and 64 sampled anchors
+    read back through the wire equal to the same reads anchored on the
+    CPU; then both seqminhash functions over a batch of the file.  G1's
+    counter is set to 0 just before and read just after.  Returns the
+    numbers."""
+    from kmerutils_tpu_torch import anchor, kvstore
+    from kmerutils_tpu_torch.base.sequence import ReadBatch, pack_codes
+    from kmerutils_tpu_torch.io import fastx
+    from kmerutils_tpu_torch.ops import sketch_grid as G
+    p = anchor.AnchorsGeneratorParameters(fasta_name=os.path.basename(fq),
+                                          **ANCHOR_PARAMS)
+    step = p.window - p.overlap
+    mbases = sum(c.size for c in clean) / 1e6
+    batch, _ = next(iter(fastx.read_batches(fq)))
+    pick = np.sort(rng.choice(batch.n_reads, size=min(64, batch.n_reads),
+                              replace=False))
+    host = (ReadBatch(batch.words[pick], batch.lengths[pick]), pick)
+    srv = kvstore.RespServer()
+    try:
+        store = anchor.RedisAnchorStore(port=srv.port)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # --- the phase's path: G1's count from 0 to what it launched ---
+        G.launches_min = 0
+        t0 = time.perf_counter()
+        anchors = anchor.anchor_computation(fq, p, store, device=dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        batch = batch.to(dev)
+        for k in (16, 12):
+            seqminhash_run(torch, batch, host, k)
+        launches_g1 = G.launches_min
+        # ------------------------------------------------------------------
+        print(f"launches on the anchor / seqminhash path: G1 {launches_g1}",
+              flush=True)
+        check(launches_g1 >= 2, "G1 was not launched by seqminhash")
+        want_n = sum(-(-c.size // step) for c in clean)
+        n_stored = len(srv.store.get(anchor.SLICE_ANCHOR_KEY.encode(), {}))
+        check(len(anchors) == want_n == n_stored,
+              f"{len(anchors)} anchors, {n_stored} stored, want {want_n}")
+        check([(a.readnum, a.slicepos) for a in anchors]
+              == sorted((a.readnum, a.slicepos) for a in anchors),
+              "anchors not in (read number, slice position) order")
+        t0 = time.perf_counter()
+        anchor.anchor_computation(fq, p, None, device=dev)
+        wall_compute = time.perf_counter() - t0
+        sample = [anchors[i] for i in np.sort(rng.choice(
+            len(anchors), size=min(64, len(anchors)), replace=False))]
+        reads = sorted({a.readnum for a in sample})
+        L = max(clean[r].size for r in reads)
+        codes = np.zeros((len(reads), L), np.uint8)
+        for i, r in enumerate(reads):
+            codes[i, : clean[r].size] = clean[r]
+        cpu = {(a.readnum, a.slicepos): a for a in anchor.compute_anchors(
+            pack_codes(codes, np.array([clean[r].size for r in reads],
+                                       np.int32), device="cpu"),
+            p, read_nums=reads)}
+        for a in sample:
+            back = store.load_anchor(p, a.readnum, a.slicepos)
+            want = cpu[(a.readnum, a.slicepos)]
+            check(back is not None and back.minhash == a.minhash
+                  == want.minhash and back.value_string()
+                  == want.value_string(), f"anchor ({a.readnum}, "
+                  f"{a.slicepos}) over the wire != the CPU's")
+        store.close()
+    finally:
+        srv.close()
+    out = {"anchors": len(anchors), "wall_s": wall,
+           "wall_compute_s": wall_compute, "mbases": mbases,
+           "mbases_per_s": mbases / wall,
+           "mbases_per_s_compute": mbases / wall_compute,
+           "max_memory_allocated_bytes": peak, "launches_G1": launches_g1,
+           "empty_anchors": sum(not a.minhash for a in anchors)}
+    print(json.dumps({"timing": "anchor_computation", **ANCHOR_PARAMS, **out,
+                      "card": card}), flush=True)
+    return out
+
+
+def remap_oracle(q: np.ndarray) -> np.ndarray:
+    """The 3-bit remap written out: q > 0x37 -> 7, q < 0x25 -> 0, else
+    1 + (q - 0x25) * 6 // 18."""
+    q = q.astype(np.int64)
+    return np.where(q > 0x37, 7, np.where(q < 0x25, 0,
+                                          1 + (q - 0x25) * 6 // 18))
+
+
+def write_quality_fastq(src: str, dst: str, rng):
+    """``src`` (4-line FASTQ) again with seeded qualities over bytes
+    0x21-0x5A; returns (all quality bytes, offsets[n + 1])."""
+    with open(src, "rb") as f:
+        lines = f.read().split(b"\n")
+    quals = lines[3::4]
+    lens = np.array([len(q) for q in quals], np.int64)
+    flat = rng.integers(0x21, 0x5B, size=int(lens.sum()), dtype=np.uint8)
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    raw = flat.tobytes()
+    lines[3::4] = [raw[offsets[i]: offsets[i + 1]] for i in range(lens.size)]
+    with open(dst, "wb") as f:
+        f.write(b"\n".join(lines))
+    return flat, offsets
+
+
+def first_lines(proc, n: int, timeout: float) -> list[str]:
+    """The first n lines of a child's stdout, failing after ``timeout``."""
+    import select
+    buf = b""
+    end = time.monotonic() + timeout
+    fd = proc.stdout.fileno()
+    while buf.count(b"\n") < n:
+        ready, _, _ = select.select([fd], [], [],
+                                    max(end - time.monotonic(), 0))
+        check(bool(ready), f"no output from {proc.args} in {timeout} s")
+        chunk = os.read(fd, 4096)
+        check(bool(chunk), f"{proc.args} ended early: {buf!r}")
+        buf += chunk
+    return buf.decode().splitlines()[:n]
+
+
+def quality_run(rng, tmp: str, card: str, fq: str) -> dict:
+    """qualityloader through the CLI as a subprocess over a seeded FASTQ
+    with qualities across all eight symbols: its port from its second line,
+    GetQRead / GetQBlock / GetQBase for 64 sampled reads equal to the
+    remap of the file's quality lines, then Exit; the in-process store's
+    build time and memory_bits."""
+    from kmerutils_tpu_torch.quality import qserver, quality
+    qfq = os.path.join(tmp, "ont10k_qual.fastq")
+    flat, offsets = write_quality_fastq(fq, qfq, rng)
+    n = offsets.size - 1
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kmerutils_tpu_torch.cli.qualityloader",
+         "-f", qfq, "-p", "0"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    try:
+        lines = first_lines(proc, 2, 120.0)
+        cli_wall = time.perf_counter() - t0
+        check(lines[0] == f"loaded {n} quality sequences from {qfq}",
+              f"qualityloader said {lines[0]!r}")
+        port = int(lines[1].rsplit(":", 1)[1])
+        cli = qserver.QualityClient(port=port)
+        cli.sock.settimeout(30.0)
+        for r in rng.choice(n, size=min(64, n), replace=False).tolist():
+            want = remap_oracle(flat[offsets[r]: offsets[r + 1]])
+            L = want.size
+            b, e = sorted(rng.integers(0, L + 1, size=2).tolist())
+            pos = int(rng.integers(0, L))
+            check(np.array_equal(cli.get_quality_sequence(r), want)
+                  and np.array_equal(cli.get_quality_block(r, b, e),
+                                     want[b:e])
+                  and cli.get_quality_base(r, pos) == want[pos],
+                  f"qualityloader: read {r} served != the file's remap")
+        cli.exit_server()
+        cli.close()
+        check(proc.wait(timeout=30) == 0, "qualityloader exited non-zero")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
+    t0 = time.perf_counter()
+    store = quality.load_quality_store(qfq)
+    load_s = time.perf_counter() - t0
+    check(np.array_equal(store.offsets, offsets)
+          and np.array_equal(store.wm.lookup(offsets[:-1][:1000]),
+                             remap_oracle(flat[offsets[:-1][:1000]])),
+          "load_quality_store != the file's remap")
+    out = {"reads": int(n), "symbols": int(flat.size),
+           "cli_wall_to_serving_s": cli_wall, "store_load_s": load_s,
+           "memory_bits": store.memory_bits(),
+           "bits_per_symbol": store.memory_bits() / flat.size}
+    print(json.dumps({"timing": "qualityloader", **out, "card": card}),
+          flush=True)
+    return out
+
+
+def splitmix64_np(x: np.ndarray) -> np.ndarray:
+    """The splitmix64 finalizer in numpy (u64 arithmetic wraps)."""
+    x = x + np.uint64(0x9E3779B97F4A7C15)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def filter_keys(torch, fq: str, dev):
+    """Every valid canonical 16-mer occurrence of the file, as u32 values
+    in int64 on the card."""
+    from kmerutils_tpu_torch.base import kmer
+    from kmerutils_tpu_torch.io import fastx
+    parts = []
+    for b, _ in fastx.read_batches(fq):
+        can, valid, _ = kmer.canonical_kmers(b.to(dev), 16)
+        parts.append(can[valid])
+    return torch.cat(parts)
+
+
+def filters_run(torch, rng, card: str, fq: str, dev,
+                log2: int = FILTER_LOG2_SLOTS, nh: int = FILTER_NB_HASH,
+                n_wide: int = 1 << 24) -> dict:
+    """BloomFilter and CountingBloom at 2^28 slots, 4 probes, over every
+    16-mer occurrence of the bacterial fixture: the card's slots equal a
+    numpy oracle (np.bincount over splitmix64 probe indices computed in
+    numpy; > 0, and clamped at 255), contains / estimate_count on a sample
+    equal the oracle's; dispatch to 4 and 8 shards (u32 16-mers and u64
+    keys, half hashing >= 2^63) card equal to CPU; insert rates timed."""
+    from kmerutils_tpu_torch.count import dispatch as D
+    from kmerutils_tpu_torch.count import filters as F
+    keys = filter_keys(torch, fq, dev)
+    n = keys.numel()
+    host = keys.cpu().numpy().view(np.uint64)
+    t0 = time.perf_counter()
+    mask = np.uint64((1 << log2) - 1)
+    idx = np.empty((nh, n), np.int64)
+    for i in range(nh):
+        idx[i] = splitmix64_np(host ^ np.uint64((i + 1) * 0x9E3779B97F4A7C15
+                                                % (1 << 64))) & mask
+    check(np.array_equal(F.probe_indices(keys, nh, log2).T.cpu().numpy(),
+                         idx), "probe_indices: card != numpy")
+    counts = np.bincount(idx.ravel(), minlength=1 << log2)
+    del idx
+    oracle_s = time.perf_counter() - t0
+    bf = F.BloomFilter.create(log2, nh, device=dev).insert(keys)
+    cb = F.CountingBloom.create(log2, nh, 8, device=dev).insert(keys)
+    check(np.array_equal(bf.slots.cpu().numpy(), (counts > 0)
+                         .astype(np.uint8)), "BloomFilter slots != oracle")
+    clamped = np.minimum(counts, cb.max_count)
+    check(np.array_equal(cb.slots.cpu().numpy(), clamped),
+          "CountingBloom slots != oracle")
+    probe = np.concatenate([host[rng.integers(0, n, size=1 << 19)],
+                            rng.integers(0, 1 << 64, size=1 << 19,
+                                         dtype=np.uint64)])
+    pt = torch.from_numpy(probe.view(np.int64)).to(dev)
+    pidx = F.probe_indices(pt, nh, log2).cpu().numpy()
+    check(np.array_equal(bf.contains(pt).cpu().numpy(),
+                         (counts[pidx] > 0).all(axis=1))
+          and np.array_equal(cb.estimate_count(pt).cpu().numpy(),
+                             clamped[pidx].min(axis=1)),
+          "contains / estimate_count != oracle")
+    check(float(bf.fill_fraction()) == float((counts > 0).mean()),
+          "fill_fraction != oracle")
+    wide = torch.from_numpy(rng.integers(0, 1 << 64, size=n_wide,
+                                         dtype=np.uint64).view(np.int64))
+    shards = {}
+    for s in (4, 8):
+        d16 = D.dispatch(keys, s, 16)
+        check(torch.equal(d16.cpu(), D.dispatch(keys.cpu(), s, 16)),
+              f"dispatch of 16-mers to {s} shards: card != CPU")
+        d64 = D.dispatch(wide.to(dev), s, 21)
+        check(torch.equal(d64.cpu(), D.dispatch(wide, s, 21)),
+              f"dispatch of u64 keys to {s} shards: card != CPU")
+        shards[s] = torch.bincount(d16.long(), minlength=s).tolist()
+    out = {"keys": n, "log2_slots": log2, "nb_hash": nh, "oracle_s": oracle_s,
+           "bloom_fill": float(bf.fill_fraction()),
+           "counting_saturated_slots": int((counts >= 255).sum()),
+           "shard_sizes_16mers": shards}
+    del bf, cb
+    torch.cuda.empty_cache()
+    for name, f in (("bloom", F.BloomFilter.create(log2, nh, device=dev)),
+                    ("counting", F.CountingBloom.create(log2, nh, 8,
+                                                        device=dev))):
+        ms = cuda_ms(torch, lambda: f.insert(keys), 3, warmup=1)
+        out[f"{name}_insert_ms"] = ms
+        out[f"{name}_insert_mkeys_per_s"] = n / ms / 1e3
+    ms = cuda_ms(torch, lambda: D.dispatch(keys, 8, 16), 5)
+    out.update(dispatch_ms=ms, dispatch_mkeys_per_s=n / ms / 1e3)
+    print(json.dumps({"timing": "filters", **out, "card": card}),
+          flush=True)
+    return out
+
+
+def anchors_quality_filters(torch, rng, tmp: str, card: str, dev, fq8: str,
+                            clean8, bact: str) -> dict:
+    phase("12 bottom-k MinHash, anchors over RESP, seqminhash, the quality "
+          "CLI, dispatch and the filters")
+    t_phase = time.perf_counter()
+    out, seconds = {}, {}
+    for name, run in (
+            ("bottomk", lambda: bottomk_checks(torch, rng, card, dev)),
+            ("anchors", lambda: anchors_run(torch, rng, card, fq8, clean8,
+                                            dev)),
+            ("quality", lambda: quality_run(rng, tmp, card, fq8)),
+            ("filters", lambda: filters_run(torch, rng, card, bact, dev))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"timing": "phase12_s", **seconds,
+                      "total": out["seconds"]}), flush=True)
     return out
 
 
@@ -2552,6 +2981,10 @@ def main(argv=None) -> int:
                                  bounds)
             torch.cuda.empty_cache()
             g = sketch_families(torch, rng, tmp, card, "cuda", fq8, clean8)
+            torch.cuda.empty_cache()
+            p12 = anchors_quality_filters(torch, rng, tmp, card, "cuda", fq8,
+                                          clean8, os.path.join(tmp,
+                                                               "bact.fastq"))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2621,6 +3054,8 @@ def main(argv=None) -> int:
                                     if isinstance(v, dict)},
             "bound_ms_each_shape": {s: v["bound_ms"] for s, v in r.items()
                                     if isinstance(v, dict)}})
+    # G1 also runs on phase 12's path (seqminhash's SuperMinHash)
+    kernels[-2]["launches_phase12"] = p12["anchors"]["launches_G1"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

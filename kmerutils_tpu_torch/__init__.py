@@ -2,7 +2,7 @@
 
 The JAX package ``kmerutils_tpu`` is the reference; this package mirrors its
 module paths (``ops/``, ``base/``, ``io/``, ``sketch/``, ``count/``,
-``cli/``) so each
+``quality/``, ``aa/``, ``cli/``) so each
 module has an obvious counterpart, and it never imports ``jax``.
 
 Conventions:
@@ -21,7 +21,12 @@ Ported so far: ``datasketcher`` for all six sketch families (PROB3A, SUPER,
 SUPER2, OPTDENS, REVOPTDENS, HLL; ``sketch/``), with block sketches and the
 ``ann`` export; the amino-acid k-mers and sketcher (``aa/``); whole-file
 k-mer counting (``parsefastq kmer --count/--unique``, with its base and
-read-length statistics) and one-batch exact counting.  Their CPU tests are
+read-length statistics) and one-batch exact counting; the quality store and
+server with the third CLI ``qualityloader`` (``quality/``, host code);
+bottom-k MinHash and range sketches (``sketch/minhash.py``,
+``sketch/seqminhash.py``), anchors and their RESP store (``anchor.py``,
+``kvstore.py``); shard dispatch and Bloom filters (``count/``).  Their CPU
+tests are
 ``tests/test_torch_*.py`` (``python -m pytest tests/test_torch_*.py``),
 which hold the port to the JAX package on the same seeded inputs.
 ROADMAP.md lists what is still to come.

@@ -1,1 +1,2 @@
-"""Whole-file k-mer counting: the streaming count table and host spill."""
+"""K-mer counting: the streaming count table and host spill, one-batch exact
+counts, shard dispatch and the Bloom / counting Bloom filters."""

@@ -1,4 +1,5 @@
-"""ctypes binding to the native C++ FASTA/FASTQ parser (native/fastx.cpp).
+"""ctypes binding to the native C++ FASTA/FASTQ parser (native/fastx.cpp)
+and wavelet-matrix builder (native/wavelet.cpp).
 
 The same shared library as the JAX package's binding (native/libktpnative.so,
 built with ``make -C native`` at first use).  When the build or the load
@@ -69,6 +70,24 @@ def _declare(lib) -> None:
         ctypes.c_long,
         np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
         ctypes.c_int32,
+    ]
+    lib.ktp_next_block_qual.restype = ctypes.c_long
+    lib.ktp_next_block_qual.argtypes = [
+        ctypes.c_void_p,
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        ctypes.c_long,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        ctypes.c_long,
+    ]
+    lib.ktp_wavelet_build.restype = ctypes.c_long
+    lib.ktp_wavelet_build.argtypes = [
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        ctypes.c_long,
+        ctypes.c_int,
+        np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
     ]
 
 
@@ -141,3 +160,65 @@ class NativeFastxReader:
         if self._h:
             self._lib.ktp_close(self._h)
             self._h = None
+
+
+def iter_clean_read_codes(path: str, block_reads: int = 10000):
+    """Yield the 2-bit code array (uint8) of every pure-ACGT read."""
+    for codes, offsets in NativeFastxReader(path, block_reads):
+        for i in range(len(offsets) - 1):
+            yield codes[offsets[i] : offsets[i + 1]]
+
+
+def wavelet_build(vals: np.ndarray, bit_len: int):
+    """Build the levels of a wavelet matrix natively (native/wavelet.cpp).
+
+    vals: uint8[n] symbols < 2**bit_len.  Returns (words u64[bit_len, nw],
+    sub u16[bit_len, nw], sup u32[bit_len, nsup + 1], zeros i64[bit_len]) in
+    the layout of ``quality._BitVecRank``, or None when the library is not
+    available or the build fails.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    vals = np.ascontiguousarray(vals, dtype=np.uint8)
+    n = vals.size
+    nw = (n + 63) // 64
+    nsup = (nw + 7) // 8
+    words = np.empty((bit_len, nw), dtype=np.uint64)
+    sub = np.empty((bit_len, nw), dtype=np.uint16)
+    sup = np.empty((bit_len, nsup + 1), dtype=np.uint32)
+    zeros = np.empty(bit_len, dtype=np.int64)
+    rc = lib.ktp_wavelet_build(vals, n, int(bit_len), words.reshape(-1),
+                               sub.reshape(-1), sup.reshape(-1), zeros)
+    if rc != 0:
+        return None
+    return words, sub, sup, zeros
+
+
+def iter_quality_blocks(path: str, block_reads: int = 10000,
+                        cap_bytes: int = 64 << 20):
+    """Yield (quality bytes uint8[...], offsets int64[n + 1]) blocks of the
+    raw quality lines of EVERY read of a 4-line FASTQ: no read is dropped
+    for a non-ACGT base, so read numbers match a scan of the whole file.
+    Raises ValueError on a record the native parser cannot take (wrapped
+    FASTQ, FASTA, a block overflow)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native parser unavailable")
+    h = lib.ktp_open(path.encode())
+    if not h:
+        raise OSError(f"cannot open {path}")
+    try:
+        quals = np.empty(cap_bytes, dtype=np.uint8)
+        offsets = np.empty(block_reads + 1, dtype=np.int64)
+        while True:
+            n = lib.ktp_next_block_qual(h, quals, cap_bytes, offsets,
+                                        block_reads)
+            if n == 0:
+                return
+            if n < 0:
+                raise ValueError(f"{path}: native quality parse failed "
+                                 "(overflow or non-FASTQ)")
+            yield quals[: offsets[n]].copy(), offsets[: n + 1].copy()
+    finally:
+        lib.ktp_close(h)

@@ -27,6 +27,15 @@ def s64(c: int) -> int:
     return c - (1 << 64) if c >= 1 << 63 else c
 
 
+def as_u64(x: torch.Tensor) -> torch.Tensor:
+    """u64 bit patterns in int64: int32 tensors are u32 values (bit
+    patterns), zero-extended; other integer tensors are taken as they
+    are."""
+    if x.dtype == torch.int32:
+        return x.to(torch.int64) & M32
+    return x.to(torch.int64)
+
+
 def shr64(x: torch.Tensor, s: int) -> torch.Tensor:
     """Logical right shift of u64 bit patterns held in int64 (0 <= s < 64)."""
     if s == 0:

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import sketch_grid
-from ..ops.bitops import M32, s64, shr64
+from ..ops.bitops import M32, as_u64, s64, shr64
 from ..ops.rng import splitmix64
 from ..ops.sketch_grid import WALKS as _WALKS
 from ..ops.sketch_grid import encrypt_pow2 as _encrypt_pow2
@@ -31,13 +31,6 @@ from .probminhash import _fold32
 
 SENTINEL32 = -1          # int32 pattern of 0xFFFFFFFF
 _GOLDEN64 = 0x9E3779B97F4A7C15
-
-
-def _as_u64(items: torch.Tensor) -> torch.Tensor:
-    """u64 bit patterns of the items: u32 items zero-extended."""
-    if items.dtype == torch.int32:
-        return items.to(torch.int64) & M32
-    return items
 
 
 def _small_perm(j: torch.Tensor, keys_u64: torch.Tensor, m: int):
@@ -65,7 +58,7 @@ def grid_min_args(items: torch.Tensor, valid: torch.Tensor, m: int,
     """The inputs of G1 (ops/sketch_grid.grid_min) for SUPER2: the items'
     32-bit folds, their permutation keys (a odd, b) from splitmix64 of the
     whole item, valid and the slot constants."""
-    kd = splitmix64(_as_u64(items) ^ s64(seed * _GOLDEN64 + 0x51))
+    kd = splitmix64(as_u64(items) ^ s64(seed * _GOLDEN64 + 0x51))
     return (_fold32(items).contiguous(),
             (shr64(kd, 32) | 1).to(torch.int32), kd.to(torch.int32),
             valid.contiguous(), slot_consts(m, seed, items.device))
