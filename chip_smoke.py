@@ -136,7 +136,23 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    over probe indices computed in numpy; clamped at 255), ``contains`` /
    ``estimate_count`` on a million keys equal to the oracle's, and
    ``dispatch`` to 4 and 8 shards (the 16-mers and 16 M random u64 keys)
-   card equal to CPU; insert and dispatch rates timed.
+   card equal to CPU; insert and dispatch rates timed;
+13. the sharded path (``parallel/``) on a process group of one rank over
+   NCCL on cuda:0 (a multi-card group needs several cards):
+   ``ShardedStreamCounter`` over phase 8's file at k=16 (capacity 2^26 a
+   rank, growing toward 2^28 as the CLI does) equal in every count to the
+   numpy oracle, its wall and device busy time (torch.profiler) printed
+   beside phase 8's ``parsefastq --count -s 16`` walls; at k=21 with
+   coordinates over the first 2,000 reads in file order (staging depth 1)
+   equal to a first-occurrence oracle; a growth epoch and spill epochs at
+   2^20 entries over the first 400 reads; ``sharded_count`` and
+   ``sharded_count_redundant`` at the bench batch (1024 x 6000, k=21)
+   equal to ``count/exact.count_batch``; ``sharded_setsketch_collection``
+   (m=200) equal to the row maximum of ``setsketch_signatures``;
+   ``gather_signatures`` of those signatures equal to them;
+   ``sharded_bloom_insert`` (2^28 slots, 4 probes) equal to
+   ``BloomFilter.insert``; the launch counters of K3, K4, K5 and G2 (each
+   set to 0 just before every path of the phase) must be > 0.
 
 With ``--baseline ROOT`` (the tree of another commit, e.g. unpacked from
 ``git archive`` into a git-ignored directory) the script runs phases 1-2,
@@ -151,7 +167,7 @@ of each package over phase 5's ONT-like file (wall ms, device ms, the
 tournament kernels' device ms).  It prints one JSON line per result and
 the card line, and no ``ok`` line.
 
-The temporary files of phases 5-12 live in one directory, removed at the
+The temporary files of phases 5-13 live in one directory, removed at the
 end.  The last three lines are the card's name and power limit, the
 kernels' JSON record (each kernel's launches on its path, exactness, ms,
 plain_ms, bound_ms with bound_by, and library_ms or null) and
@@ -1344,7 +1360,9 @@ def read_count_dump(path: str, k: int):
     return rec["k"], rec["c"]
 
 
-def check_count_dump(path: str, reads, k: int, what: str) -> int:
+def check_count_dump(path: str, reads, k: int, what: str):
+    """Compare a --count dump with the numpy oracle; returns the oracle's
+    (keys, counts) of every distinct k-mer."""
     can, _, _ = oracle_kmers(reads, k)
     keys, counts = np.unique(can, return_counts=True)
     sel = counts >= 2
@@ -1356,7 +1374,7 @@ def check_count_dump(path: str, reads, k: int, what: str) -> int:
           f"(of {keys.size} distinct {k}-mers): "
           f"{'equal' if ok else 'DIFFERENT'}", flush=True)
     check(ok, f"{what}: dump != numpy oracle")
-    return int(keys.size)
+    return keys, counts
 
 
 def check_unique_dump(path: str, reads, k: int, what: str) -> int:
@@ -1431,8 +1449,8 @@ def counting_runs(torch, rng, tmp: str, card: str, dev,
     check(rc == 0 and "WARNING" not in err, "--count -s 16 failed or dropped")
     for name in ("K3", "K4", "K5"):
         check(launches[name] > 0, f"{name} was not launched on the CLI path")
-    distinct16 = check_count_dump(fq + ".multi_kmer.bin", reads, 16,
-                                  "--count -s 16")
+    oracle16 = check_count_dump(fq + ".multi_kmer.bin", reads, 16,
+                                "--count -s 16")
 
     rc, _, err, _ = run_parsefastq(base + ["--unique", "-s", "21"], tmp)
     check(rc == 0 and "WARNING" not in err, "--unique -s 21 failed or dropped")
@@ -1459,10 +1477,10 @@ def counting_runs(torch, rng, tmp: str, card: str, dev,
         check(rc == 0, "--count repeat failed")
         walls.append(w)
     print(json.dumps({"timing": "parsefastq_count_k16_wall", "s": walls,
-                      "mbases": mbases, "distinct_16mers": distinct16,
+                      "mbases": mbases, "distinct_16mers": oracle16[0].size,
                       "mbases_per_s": [mbases / w for w in walls],
                       "card": card}), flush=True)
-    return launches
+    return launches, reads, walls, oracle16
 
 
 # ---------------------------------------------------------------------------
@@ -2790,6 +2808,245 @@ def anchors_quality_filters(torch, rng, tmp: str, card: str, dev, fq8: str,
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the sharded path (parallel/) over NCCL, one rank
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def file_order_batches(reads, n_rows: int, dev):
+    """(ReadBatch on ``dev``, read-number offset) over ``reads`` in file
+    order, ``n_rows`` reads a batch."""
+    from kmerutils_tpu_torch.base.sequence import pack_codes
+    for s in range(0, len(reads), n_rows):
+        chunk = reads[s:s + n_rows]
+        lens = np.array([r.size for r in chunk], np.int32)
+        codes = np.zeros((len(chunk), int(lens.max())), np.uint8)
+        for i, r in enumerate(chunk):
+            codes[i, :r.size] = r
+        yield pack_codes(codes, lens, device=dev), s
+
+
+def count_oracle_np(reads, k: int):
+    """(keys, counts, first read, first position) of every canonical k-mer
+    of ``reads``, keys ascending (numpy)."""
+    can, rid, pos = oracle_kmers(reads, k)
+    keys, first, counts = np.unique(can, return_index=True,
+                                    return_counts=True)
+    return keys, counts, rid[first], pos[first]
+
+
+def check_counter(got, reads, k: int, coords: bool, what: str,
+                  oracle=None) -> int:
+    """Compare a counter's union with the numpy oracle (``oracle``: its
+    (keys, counts) when computed already, for a run without
+    coordinates)."""
+    keys, counts, rn, ps, dropped = got
+    if oracle is None:
+        wk, wc, wr, wp = count_oracle_np(reads, k)
+    else:
+        wk, wc = oracle
+    ok = (dropped == 0 and keys.size == wk.size
+          and np.array_equal(keys.astype(np.uint64), wk)
+          and np.array_equal(counts.astype(np.int64), wc))
+    if coords:
+        ok = ok and np.array_equal(rn, wr) and np.array_equal(ps, wp)
+    print(f"{what}: {keys.size} distinct {k}-mers, oracle {wk.size}, "
+          f"{int(wc.sum())} occurrences: {'equal' if ok else 'DIFFERENT'}",
+          flush=True)
+    check(ok, f"{what}: counter != numpy oracle")
+    return int(wk.size)
+
+
+def sharded_path(torch, rng, card: str, fq: str, reads, walls8, oracle16,
+                 dev, n_coords: int = 2_000, n_small: int = 400,
+                 bench_shape=(1024, 6000), log2_slots: int = 28) -> dict:
+    """Phase 13: parallel/ on a one-rank group on ``dev`` (NCCL on
+    cuda:0)."""
+    phase("13 the sharded path over NCCL (one rank on cuda:0)")
+    import torch.distributed as dist
+    from kmerutils_tpu_torch.base import kmer as kmer_mod
+    from kmerutils_tpu_torch.base.sequence import pack_codes
+    from kmerutils_tpu_torch.count import exact
+    from kmerutils_tpu_torch.count.filters import BloomFilter
+    from kmerutils_tpu_torch.io import fastx
+    from kmerutils_tpu_torch.ops import merge as M
+    from kmerutils_tpu_torch.ops import sketch_grid as G
+    from kmerutils_tpu_torch.parallel import collective as pc
+    from kmerutils_tpu_torch.parallel import mesh as pm
+    from kmerutils_tpu_torch.parallel import stream as ps
+    from kmerutils_tpu_torch.profile_sketch import profile
+    from kmerutils_tpu_torch.sketch import setsketch
+    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
+
+    t_phase = time.perf_counter()
+    mesh = pm.make_mesh(dev, init_method=f"tcp://127.0.0.1:{free_port()}",
+                        rank=0, world_size=1, timeout=120)
+    print(f"process group: {mesh}", flush=True)
+    check(mesh.world == 1 and (mesh.backend == "nccl"
+                               and mesh.device == torch.device("cuda", 0)
+                               or torch.device(dev).type == "cpu"),
+          "not NCCL on cuda:0")
+    launches = {"K3": 0, "K4": 0, "K5": 0, "G2": 0}
+
+    def driven(fn):
+        # --- a path of this phase: counts from 0 to what it launched ---
+        M.reset_launches()
+        G.launches_max = 0
+        out = fn()
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+        for name, n in (("K3", M.launches_fold), ("K4", M.launches_aggregate),
+                        ("K5", M.launches_merge), ("G2", G.launches_max)):
+            launches[name] += n
+        # -------------------------------------------------------------------
+        return out
+
+    def counter_run(batches, k, cap, **kw):
+        ctr = ps.ShardedStreamCounter(mesh, cap, wide=k > 16, **kw)
+        for batch, offset in batches:
+            ctr.update(pm.reads_sharding(mesh, batch), k,
+                       read_num_offset=offset)
+        got = ctr.finalize()
+        check(ctr.dropped_in_transit == 0, "in-transit drops")
+        return ctr, got
+
+    def file_batches():
+        for batch, _idx in fastx.read_batches_overlapped(fq, device=dev):
+            yield batch, 0
+
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    try:
+        # the k=16 counter over the whole file (the CLI's capacities)
+        def k16():
+            return counter_run(file_batches(), 16, 1 << 26,
+                               cap_max_per_device=1 << 28)
+        t1 = time.perf_counter()
+        ctr, got = driven(k16)
+        walls = [time.perf_counter() - t1]
+        out["capacity16"] = ctr.table.capacity
+        ctr.close()
+        check_counter(got, reads, 16, False, "ShardedStreamCounter k=16",
+                      oracle=oracle16)
+        del got
+        # a warm run, one timed by events, one under torch.profiler
+        prof = profile(lambda: k16()[0].close(), 1)
+        walls.append(prof["event_ms_per_call"] / 1e3)
+        mbases = sum(r.size for r in reads) / 1e6
+        out["k16"] = {"wall_s": walls,
+                      "device_busy_ms": prof["device_ms_per_call"],
+                      "idle_share": prof["idle_share_vs_unprofiled_loop"],
+                      "family_ms": prof["family_ms_per_call"],
+                      "mbases_per_s": [mbases / w for w in walls],
+                      "parsefastq_count_k16_wall_s": walls8}
+        print(json.dumps({"timing": "sharded_counter_k16", **out["k16"],
+                          "capacity_end": out["capacity16"],
+                          "card": card}), flush=True)
+        seconds["k16"] = time.perf_counter() - t0
+
+        # k=21 with coordinates, file-order batches, staged at depth 1
+        part = reads[:n_coords]
+        ctr, got = driven(lambda: counter_run(
+            file_order_batches(part, 250, dev), 21, 1 << 26, coords=True,
+            depth=1))
+        ctr.close()
+        check_counter(got, part, 21, True,
+                      f"ShardedStreamCounter k=21 coords ({n_coords} reads)")
+        seconds["k21_coords"] = time.perf_counter() - t0 - sum(
+            seconds.values())
+
+        # one growth epoch, then spill epochs, at small capacities
+        small = reads[:n_small]
+        ctr, got = driven(lambda: counter_run(
+            file_order_batches(small, 24, dev), 16, 1 << 20,
+            cap_max_per_device=1 << 23))
+        check(ctr.table.capacity > 1 << 20 and not ctr.spill_stores,
+              "the growth run never grew")
+        check_counter(got, small, 16, False,
+                      f"growth run ({ctr.table.capacity} entries at the end)")
+        ctr.close()
+        ctr, got = driven(lambda: counter_run(
+            file_order_batches(small, 24, dev), 16, 1 << 20,
+            coords=True))
+        segs = ctr.spill_stores[0].n_segments if ctr.spill_stores else 0
+        check(segs >= 2, f"spill run wrote {segs} segments, want >= 2")
+        check_counter(got, small, 16, True, f"spill run ({segs} segments)")
+        ctr.close()
+        seconds["grow_spill"] = time.perf_counter() - t0 - sum(
+            seconds.values())
+        torch.cuda.empty_cache()
+
+        # the one-batch collectives at the bench batch
+        n_b, l_b = bench_shape
+        bench = pack_codes(rng.integers(0, 4, size=(n_b, l_b), dtype=np.uint8),
+                           np.full(n_b, l_b, np.int32), device=dev)
+        want = exact.count_batch(bench, 21)
+        n = want.keys.numel()
+        keys, counts, dropped, nd, nu = driven(
+            lambda: pc.sharded_count(bench, 21, mesh))
+        check(int(dropped) == 0 and torch.equal(keys[:n], want.keys)
+              and bool((keys[n:] == -1).all())
+              and torch.equal(counts[:n], want.counts)
+              and bool((counts[n:] == 0).all())
+              and int(nd) == int(want.n_distinct)
+              and int(nu) == int(want.n_unique),
+              "sharded_count != count_batch")
+        red = driven(lambda: pc.sharded_count_redundant(bench, 21, mesh))
+        check(torch.equal(red[0], want.keys) and torch.equal(red[1],
+                                                             want.counts)
+              and int(red[2]) == int(want.n_distinct)
+              and int(red[3]) == int(want.n_unique),
+              "sharded_count_redundant != count_batch")
+        print(f"sharded_count / _redundant ({n_b} x {l_b}, k=21): "
+              f"{int(nd)} distinct, {int(nu)} unique, equal to count_batch",
+              flush=True)
+        del keys, counts, red, want
+
+        items, valid = hashed_kmers(bench, 21)
+        p = setsketch.SetSketchParams(m=200)
+        merged = driven(lambda: pc.sharded_setsketch_collection(
+            items, valid, p, mesh))
+        regs = setsketch.setsketch_signatures(items, valid, p)
+        check(torch.equal(merged, regs.max(dim=0).values),
+              "sharded_setsketch_collection != row max")
+        gathered = driven(lambda: pc.gather_signatures(regs, mesh))
+        mask = pc.gather_signatures(regs % 2 == 0, mesh)
+        check(torch.equal(gathered, regs) and torch.equal(mask,
+                                                          regs % 2 == 0),
+              "gather_signatures != the signatures")
+
+        can, kvalid, _ = kmer_mod.canonical_kmers(bench, 21)
+        bkeys = torch.where(kvalid, can, -1).reshape(-1)
+        slots = torch.zeros(1 << log2_slots, dtype=torch.uint8, device=dev)
+        got_slots = driven(lambda: pc.sharded_bloom_insert(
+            slots, bkeys, 4, log2_slots, mesh))
+        want_slots = BloomFilter.create(log2_slots, 4, dev).insert(
+            bkeys, mask=bkeys != -1).slots
+        check(torch.equal(got_slots, want_slots),
+              "sharded_bloom_insert != BloomFilter.insert")
+        print(f"setsketch collection, gather and Bloom (2^{log2_slots} slots,"
+              f" 4 probes, fill {float(got_slots.float().mean()):.4f}): "
+              "equal", flush=True)
+        seconds["one_batch"] = time.perf_counter() - t0 - sum(
+            seconds.values())
+    finally:
+        dist.destroy_process_group()
+    print(f"launches on phase 13's paths: {launches}", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the sharded path")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"timing": "phase13_s", **seconds,
+                      "total": out["seconds"]}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --baseline: K1-K7 of this tree against another tree's, in turns
 # ---------------------------------------------------------------------------
 
@@ -2974,7 +3231,9 @@ def main(argv=None) -> int:
             launches, fq8, clean8 = slice_runs(torch, rng, tmp, card, "cuda")
             t = timings(torch, rng, card, bounds)
             m = merge_kernels_vs_plain(torch, rng, card, bounds)
-            launches.update(counting_runs(torch, rng, tmp, card, "cuda"))
+            launches8, bact_reads, walls8, oracle16 = counting_runs(
+                torch, rng, tmp, card, "cuda")
+            launches.update(launches8)
             k7 = k7_and_exact(torch, rng, card, bounds)
             torch.cuda.empty_cache()
             rest_of_datasketcher(torch, rng, tmp, card, "cuda", fq8, clean8,
@@ -2985,6 +3244,10 @@ def main(argv=None) -> int:
             p12 = anchors_quality_filters(torch, rng, tmp, card, "cuda", fq8,
                                           clean8, os.path.join(tmp,
                                                                "bact.fastq"))
+            torch.cuda.empty_cache()
+            p13 = sharded_path(torch, rng, card, os.path.join(tmp,
+                                                              "bact.fastq"),
+                               bact_reads, walls8, oracle16, "cuda")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3054,8 +3317,14 @@ def main(argv=None) -> int:
                                     if isinstance(v, dict)},
             "bound_ms_each_shape": {s: v["bound_ms"] for s, v in r.items()
                                     if isinstance(v, dict)}})
-    # G1 also runs on phase 12's path (seqminhash's SuperMinHash)
+    # G1 also runs on phase 12's path (seqminhash's SuperMinHash); K3, K4,
+    # K5 and G2 on phase 13's sharded path
     kernels[-2]["launches_phase12"] = p12["anchors"]["launches_G1"]
+    for kern in kernels:
+        key = {"merge_fold": "K3", "aggregate_fold": "K4",
+               "merge_sorted": "K5", "grid_max": "G2"}.get(kern["name"])
+        if key:
+            kern["launches_phase13"] = p13["launches"][key]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 The JAX package ``kmerutils_tpu`` is the reference; this package mirrors its
 module paths (``ops/``, ``base/``, ``io/``, ``sketch/``, ``count/``,
-``quality/``, ``aa/``, ``cli/``) so each
+``quality/``, ``aa/``, ``parallel/``, ``cli/``) so each
 module has an obvious counterpart, and it never imports ``jax``.
 
 Conventions:
@@ -25,7 +25,10 @@ read-length statistics) and one-batch exact counting; the quality store and
 server with the third CLI ``qualityloader`` (``quality/``, host code);
 bottom-k MinHash and range sketches (``sketch/minhash.py``,
 ``sketch/seqminhash.py``), anchors and their RESP store (``anchor.py``,
-``kvstore.py``); shard dispatch and Bloom filters (``count/``).  Their CPU
+``kvstore.py``); shard dispatch and Bloom filters (``count/``); counting
+and sketching over several devices with ``torch.distributed``
+(``parallel/``: hash-sharded streaming counts, the all-to-all exchange,
+the collective merges).  Their CPU
 tests are
 ``tests/test_torch_*.py`` (``python -m pytest tests/test_torch_*.py``),
 which hold the port to the JAX package on the same seeded inputs.

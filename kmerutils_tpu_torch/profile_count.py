@@ -1,7 +1,13 @@
 """Device-time breakdown of one ``parsefastq kmer --count`` run on one card.
 
     python -m kmerutils_tpu_torch.profile_count -f reads.fastq [-s 16]
-                                                [--out FILE]
+                                                [--sharded] [--out FILE]
+
+``--sharded`` profiles parallel/stream.ShardedStreamCounter over the same
+file instead (no dump), on a process group of one rank over NCCL on
+cuda:0, with the capacities phase 13 of chip_smoke.py uses (2^26 entries,
+growing toward 2^28); its all_to_all and reductions show as the "nccl"
+family.
 
 In one process on one card: one warm-up run (kernel build, allocator
 growth), one timed run (host clock, ended by a device synchronize), then
@@ -12,7 +18,9 @@ copies and the rest; its idle share is 1 - device time / the run's wall
 time.  Kernels and copies of one stream do not overlap, so their sum is
 the busy time.  The run writes its dump and histograms into a temporary
 directory.  Prints one JSON line (the card's name and power limit
-included) and appends it to ``--out`` when given.  Needs a CUDA device.
+included) and appends it to ``--out`` when given, with the host
+operations of the profiled run that took the most CPU time themselves
+(``host_top``).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -43,6 +51,8 @@ def family(kernel_name: str) -> str:
         return "K4 aggregate_fold"
     if "sort" in name or "radix" in name:
         return "sort"
+    if "nccl" in name:
+        return "nccl"
     if "memcpy" in name or "memset" in name:
         return "copy"
     if any(s in name for s in ("elementwise", "vectorized", "unrolled")):
@@ -68,10 +78,29 @@ def run_once(argv, workdir: str) -> float:
     return wall
 
 
+def sharded_once(mesh, path: str, k: int) -> float:
+    """ShardedStreamCounter over ``path`` to its finalized union; wall
+    seconds up to a synchronize."""
+    from .io import fastx
+    from .parallel import mesh as pm
+    from .parallel import stream as ps
+    t0 = time.perf_counter()
+    ctr = ps.ShardedStreamCounter(mesh, 1 << 26, wide=k > 16,
+                                  cap_max_per_device=1 << 28)
+    for batch, _idx in fastx.read_batches_overlapped(path,
+                                                     device=mesh.device):
+        ctr.update(pm.reads_sharding(mesh, batch), k)
+    ctr.finalize()
+    ctr.close()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="profile_count")
     ap.add_argument("-f", "--file", required=True, dest="filename")
     ap.add_argument("-s", "--size", type=int, default=16, dest="kmer_size")
+    ap.add_argument("--sharded", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -82,18 +111,36 @@ def main(argv=None) -> int:
     from torch.profiler import profile as torch_profile
 
     tmp = tempfile.mkdtemp(prefix="profile_count_")
+    mesh = None
     try:
         fq = os.path.join(tmp, os.path.basename(args.filename))
         shutil.copy(args.filename, fq)
-        cli = ["-f", fq, "--device", "cuda", "kmer", "--count", "-s",
-               str(args.kmer_size)]
-        run_once(cli, tmp)
-        wall = run_once(cli, tmp)
+        if args.sharded:
+            import socket
+            from .parallel import mesh as pm
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            mesh = pm.make_mesh("cuda", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1, timeout=120)
+
+            def once():
+                return sharded_once(mesh, fq, args.kmer_size)
+        else:
+            cli = ["-f", fq, "--device", "cuda", "kmer", "--count", "-s",
+                   str(args.kmer_size)]
+
+            def once():
+                return run_once(cli, tmp)
+        once()
+        wall = once()
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
-            wall_prof = run_once(cli, tmp)
+            wall_prof = once()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
     fams: dict[str, float] = {}
     counts: dict[str, int] = {}
     for ev in prof.events():
@@ -105,14 +152,19 @@ def main(argv=None) -> int:
     if not counts:
         raise RuntimeError("the profiler recorded no device events")
     busy_ms = sum(fams.values())
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     line = json.dumps({
-        "profile": f"parsefastq_count_k{args.kmer_size}",
+        "profile": ("sharded_counter" if args.sharded else
+                    "parsefastq_count") + f"_k{args.kmer_size}",
         "file": os.path.basename(args.filename),
         "wall_s": wall, "wall_s_profiled": wall_prof,
         "device_ms": busy_ms,
         "idle_share_profiled_run": 1.0 - busy_ms / (wall_prof * 1e3),
         "idle_share_vs_unprofiled_run": 1.0 - busy_ms / (wall * 1e3),
-        "family_ms": fams, "family_launches": counts, "card": card_line()})
+        "family_ms": fams, "family_launches": counts,
+        "host_top": [{"op": a.key, "self_cpu_ms": a.self_cpu_time_total / 1e3,
+                      "calls": a.count} for a in host[:15]],
+        "card": card_line()})
     print(line, flush=True)
     if args.out:
         with open(args.out, "a") as f:
