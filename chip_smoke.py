@@ -92,18 +92,23 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
 11. the other five families: G1 (``grid_min``, SUPER2's packed-key
    minimum) and G2 (``grid_max``, SetSketch's hash maximum) of
    csrc/sketch.cu vs their plain versions on the card, exact, at the bench
-   shape (1024 x 6000, k=8 and k=21, some all-invalid rows), at m = 1, 13,
-   200 and 4096 with random u32 / u64 items (half >= 2^31 / 2^63) and on
-   sketch_collection's one row of ~6.1 M positions (the split grid); each
-   timed with CUDA events against its plain version and its bound
+   shape (1024 x 6000, k=8 and k=21, some all-invalid rows), on
+   sketch_collection's one row of ~6.1 M positions (the split grid) and at
+   the shapes of ``GRID_CHECKS`` with random u32 / u64 items (half >= 2^31
+   / 2^63): m = 1, 13, 129, 199, 200, 201, 257, 1000 and 4096 over 64 x
+   2000 positions (not a multiple of the staging chunk; all-invalid rows, a
+   row of one valid position), rows of one position, and one split row at
+   m = 129, where the data must hold pairs that the clamp after four walk
+   rounds ends (``roofline.walk_stats``); timed at the bench shape and the
+   collection row with CUDA events against its plain version and its bound
    (kmerutils_tpu_torch/roofline.py: the integer operations the function
    needs per (position, slot) pair, G1's cycle walk counted from the
    data, over the card's issue rate; the kernel's own SASS count beside
-   it); HLL's whole ``sketch_batch`` on the card against the CPU at the
-   bench shape and on a ragged batch (``sketch_collection`` too), k=8 and
-   k=21, registers equal but where the float32 value before the floor
-   lies within 2 ulp of an integer; ``sketch_batch`` of the five families
-   at the bench shape; ``datasketcher -a SUPER / SUPER2 / OPTDENS /
+   it, by pipe); HLL's whole ``sketch_batch`` on the card against the CPU
+   at the bench shape and on a ragged batch (``sketch_collection`` too),
+   k=8 and k=21, registers equal but where the float32 value before the
+   floor lies within 2 ulp of an integer; ``sketch_batch`` of the five
+   families at the bench shape; ``datasketcher -a SUPER / SUPER2 / OPTDENS /
    REVOPTDENS / HLL -k 8`` through the CLI on ``cuda`` over phase 5's file
    (G1 / G2 launch counters > 0), each dump read back and 64 sampled reads
    sketched again on the card, through the plain path on the card (every
@@ -162,7 +167,9 @@ this, this, baseline): at phase 6's shapes and sketch_collection's row,
 CUDA-event ms, host ms to enqueue one call and device ms (torch.profiler),
 every result equal to the plain version; K3/K5 and K4/K6 at phase 7's
 timed shapes and K7 at phase 9's seven timed shapes the same way (event ms
-and device ms); then ``datasketcher -b 512 -k 8``
+and device ms); G1/G2 at phase 11's three timed shapes (each tree's SASS
+count per pair; event ms, host enqueue ms and device ms); then
+``datasketcher -b 512 -k 8``
 of each package over phase 5's ONT-like file (wall ms, device ms, the
 tournament kernels' device ms).  It prints one JSON line per result and
 the card line, and no ``ok`` line.
@@ -2106,7 +2113,8 @@ def grid_case(torch, G, name: str, args, what: str) -> int:
 
 def random_items(torch, rng, n: int, P: int, wide: bool):
     """Random items with half of them >= 2^31 (u32) or >= 2^63 (u64), a
-    valid mask with all-invalid rows and a row of one valid position."""
+    valid mask with (when n > 1) all-invalid rows and a row of one valid
+    position."""
     if wide:
         a = rng.integers(0, 1 << 64, size=(n, P), dtype=np.uint64)
         items = torch.from_numpy(a.view(np.int64)).cuda()
@@ -2114,9 +2122,10 @@ def random_items(torch, rng, n: int, P: int, wide: bool):
         a = rng.integers(0, 1 << 32, size=(n, P), dtype=np.uint64)
         items = torch.from_numpy(a.astype(np.uint32).view(np.int32)).cuda()
     v = rng.random((n, P)) < 0.9
-    v[::7] = False
-    v[1] = False
-    v[1, P // 2] = True
+    if n > 1:
+        v[::7] = False
+        v[1] = False
+        v[1, P // 2] = True
     return items, torch.from_numpy(v).cuda()
 
 
@@ -2210,45 +2219,69 @@ def hll_whole_checks(torch, rng, bench, m: int = 200) -> int:
     return n_bad
 
 
+def grid_timed_shapes(torch, bench, m: int = 200):
+    """(name, G1's inputs, G2's inputs) at phase 11's timed shapes: the
+    bench batch at k=8 and k=21 (every 97th row from the 6th all-invalid)
+    and sketch_collection's one row (k=21)."""
+    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
+    for k in (8, 21):
+        items, valid = hashed_kmers(bench, k)
+        valid = valid.clone()
+        valid[5::97] = False
+        yield (f"bench_k{k}", *grid_args(torch, items, valid, m))
+    items, valid = hashed_kmers(bench, 21)
+    yield ("collection_k21", *grid_args(torch, items.reshape(1, -1),
+                                        valid.reshape(1, -1), m))
+
+
+GRID_TIMED = ("bench_k8", "bench_k21", "collection_k21")
+# (m, rows, positions) of phase 11's exact-only G1 / G2 checks: a slot set
+# of one slot, of 13, of 129 (nbits 8: about half of the pairs walk, some
+# to the clamp), around 200 and 256 (slot sets that are not a multiple of
+# G1's slots a thread or of a warp), 1000 and 4096 (two slot groups of G1);
+# 2000 positions (not a multiple of the staging chunk), one position a row,
+# and one split row
+GRID_CHECKS = tuple((mm, 64, 2000) for mm in (1, 13, 129, 199, 200, 201, 257,
+                                              1000, 4096)) + (
+    (200, 5, 1), (129, 1, 300_000))
+
+
 def grid_kernels_vs_plain(torch, rng, card: str, bench, m: int = 200):
     """G1 / G2 exact at every checked shape; timed at the bench shape (k=8
     and k=21) and sketch_collection's row.  Returns the kernels' numbers."""
     from kmerutils_tpu_torch import _build, roofline as rl
     from kmerutils_tpu_torch.ops import sketch_grid as G
-    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
     ipp = rl.grid_instructions_per_pair(_build.library_path())
-    check(set(ipp) == {"grid_min", "grid_max"}, f"grid SASS not found: {ipp}")
     for k, r in ipp.items():
         print(f"SASS {k}: inner loop {r['instructions']} instructions for "
-              f"{r['draws']} pairs", flush=True)
+              f"{r['draws']} pairs; per pair by pipe "
+              f"{json.dumps(r['pipes_per_draw'])}", flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = rl.sm_clock_hz()
     err = {"grid_min": 0, "grid_max": 0}
 
-    def both(items, valid, mm, what, seed=0):
-        g1, g2 = grid_args(torch, items, valid, mm, seed)
+    def both(g1, g2, what):
         err["grid_min"] = max(err["grid_min"],
                               grid_case(torch, G, "grid_min", g1, what))
         err["grid_max"] = max(err["grid_max"],
                               grid_case(torch, G, "grid_max", g2, what))
-        return g1, g2
 
     timed = {}
-    for k in (8, 21):
-        items, valid = hashed_kmers(bench, k)
-        valid = valid.clone()
-        valid[5::97] = False                   # all-invalid rows
-        g1, g2 = both(items, valid, m, f"bench k={k}")
-        timed[f"bench_k{k}"] = (g1, g2)
-    for mm in (1, 13, 200, 4096):
+    for shape, g1, g2 in grid_timed_shapes(torch, bench, m):
+        both(g1, g2, shape)
+        timed[shape] = (g1, g2)
+    for mm, n, P in GRID_CHECKS:
         for wide in (False, True):
-            items, valid = random_items(torch, rng, 64, 2000, wide)
-            both(items, valid, mm, f"m={mm} {'u64' if wide else 'u32'} "
-                 f"items", seed=7)
-    items, valid = hashed_kmers(bench, 21)
-    g1, g2 = both(items.reshape(1, -1), valid.reshape(1, -1), m,
-                  "sketch_collection's row (k=21)")
-    timed["collection_k21"] = (g1, g2)
+            items, valid = random_items(torch, rng, n, P, wide)
+            g1, g2 = grid_args(torch, items, valid, mm, seed=7)
+            what = f"m={mm} {'u64' if wide else 'u32'} items"
+            if mm == 129:           # the four-walk clamp must fire here
+                walks = rl.walk_stats(g1[1], g1[2], g1[3], mm)
+                print(f"{what}, {n} x {P}: {walks['rounds']} walk rounds, "
+                      f"{walks['clamped']} pairs clamped", flush=True)
+                check(walks["clamped"] > 0, f"no clamped pair at {what}")
+            both(g1, g2, what)
+            del g1, g2, items, valid
     out = {}
     for shape, (g1, g2) in timed.items():
         for name, args in (("grid_min", g1), ("grid_max", g2)):
@@ -2276,6 +2309,7 @@ def grid_kernels_vs_plain(torch, rng, card: str, bench, m: int = 200):
     for name in out:
         out[name]["max_abs_err"] = err[name]
         out[name]["sass_per_pair"] = ipp[name]["instructions_per_draw"]
+        out[name]["sass_pipes_per_pair"] = ipp[name]["pipes_per_draw"]
     return out
 
 
@@ -3047,7 +3081,8 @@ def sharded_path(torch, rng, card: str, fq: str, reads, walls8, oracle16,
 
 
 # ---------------------------------------------------------------------------
-# --baseline: K1-K7 of this tree against another tree's, in turns
+# --baseline: K1-K7 and G1/G2 of this tree against another tree's, in
+# turns
 # ---------------------------------------------------------------------------
 
 def load_port(root: str, name: str = "baseline_port"):
@@ -3067,8 +3102,8 @@ def load_port(root: str, name: str = "baseline_port"):
 
 def against_baseline(torch, rng, root: str, card: str, ipd: dict,
                      m: int = 200) -> None:
-    phase(f"A/B: K1/K2, K3-K6 and K7 of this tree against the port in "
-          f"{root}")
+    phase(f"A/B: K1/K2, K3-K6, K7 and G1/G2 of this tree against the port "
+          f"in {root}")
     from kmerutils_tpu_torch import roofline
     from kmerutils_tpu_torch.ops import tournament as T
     from kmerutils_tpu_torch.profile_sketch import profile
@@ -3112,6 +3147,7 @@ def against_baseline(torch, rng, root: str, card: str, ipd: dict,
     merge_against_baseline(torch, rng, card, bounds, order)
     aggregate_against_baseline(torch, rng, card, bounds, order)
     k7_against_baseline(torch, rng, card, bounds, order)
+    grid_against_baseline(torch, rng, card, order)
     mains = {"baseline": importlib.import_module(
         "baseline_port.cli.datasketcher").main, "this": datasketcher_main()}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3190,12 +3226,63 @@ def aggregate_against_baseline(torch, rng, card: str, bounds: Bounds,
         torch.cuda.empty_cache()
 
 
+def grid_against_baseline(torch, rng, card: str, order) -> None:
+    """G1 / G2 of the baseline tree (imported as baseline_port) and of this
+    tree through their public wrappers at phase 11's three timed shapes:
+    each tree's SASS count per pair, every result equal to the plain
+    version, then CUDA-event ms, host ms to enqueue one call and profiler
+    device ms (the output's fill and the kernel) in turns."""
+    from kmerutils_tpu_torch import _build, roofline as rl
+    from kmerutils_tpu_torch.ops import sketch_grid as G
+    from kmerutils_tpu_torch.profile_sketch import profile
+    base = {m: importlib.import_module("baseline_port." + m)
+            for m in ("_build", "roofline", "ops.sketch_grid")}
+    for k, r in (("baseline", base["roofline"].grid_instructions_per_pair(
+            base["_build"].library_path())),
+                 ("this", rl.grid_instructions_per_pair(
+                     _build.library_path()))):
+        print(json.dumps({"sass": k, **{name: {
+            "per_pair": v["instructions_per_draw"],
+            "pipes_per_pair": v.get("pipes_per_draw")}
+            for name, v in r.items()}}), flush=True)
+    mods = {"baseline": base["ops.sketch_grid"], "this": G}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = rl.sm_clock_hz()
+    bench = random_batch(rng, 1024, 6000)
+    for shape, g1, g2 in grid_timed_shapes(torch, bench):
+        for name, args in (("grid_min", g1), ("grid_max", g2)):
+            want = getattr(G, name + "_ref")(*args)
+            fns = {k: functools.partial(getattr(mod, name), *args)
+                   for k, mod in mods.items()}
+            for k, fn in fns.items():
+                check(torch.equal(fn(), want), f"{name} at {shape}: {k} "
+                      f"kernel != plain")
+            res = {k: {"ms": [], "enqueue_ms": []} for k in fns}
+            for k in order:
+                res[k]["ms"].append(cuda_ms(torch, fns[k], 20))
+            for k in order:
+                res[k]["enqueue_ms"].append(enqueue_ms(torch, fns[k]))
+            for k in fns:
+                res[k]["device_ms"] = profile(fns[k], 5)["device_ms_per_call"]
+            ops, nbytes = rl.grid_work(name, args)
+            print(json.dumps({"timing": f"{name}_{shape}",
+                              "rows": args[0].shape[0],
+                              "P": args[0].shape[1], **res,
+                              "bound_ms": rl.bound(nbytes, ops, sms,
+                                                   clock)[0],
+                              "card": card}), flush=True)
+            del want, fns
+        del g1, g2
+    del bench
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Smoke test of the PyTorch + CUDA port on one GPU.")
     ap.add_argument("--baseline", metavar="ROOT", default=None,
-                    help="compare K1/K2, K3-K6 and K7 with the port in "
-                         "this tree instead of running the smoke test")
+                    help="compare K1/K2, K3-K6, K7 and G1/G2 with the port "
+                         "in this tree instead of running the smoke test")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3311,12 +3398,9 @@ def main(argv=None) -> int:
             "bound_by": r["bench_k8"]["bound_by"], "library_ms": None,
             "ops_per_pair": r["bench_k8"]["ops_per_pair"],
             "sass_per_pair": r["sass_per_pair"],
-            "ms_each_shape": {s: v["ms"] for s, v in r.items()
-                              if isinstance(v, dict)},
-            "plain_ms_each_shape": {s: v["plain_ms"] for s, v in r.items()
-                                    if isinstance(v, dict)},
-            "bound_ms_each_shape": {s: v["bound_ms"] for s, v in r.items()
-                                    if isinstance(v, dict)}})
+            "sass_pipes_per_pair": r["sass_pipes_per_pair"],
+            **{f"{k}_each_shape": {s: r[s][k] for s in GRID_TIMED}
+               for k in ("ms", "plain_ms", "bound_ms")}})
     # G1 also runs on phase 12's path (seqminhash's SuperMinHash); K3, K4,
     # K5 and G2 on phase 13's sharded path
     kernels[-2]["launches_phase12"] = p12["anchors"]["launches_G1"]

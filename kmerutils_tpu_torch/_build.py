@@ -74,12 +74,22 @@ def _declare(lib) -> None:
     lib.launch_tournament.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ll, ci,
                                       ci, ci, ctypes.POINTER(TournamentPlan),
                                       vp]
+    declare_sketch(lib)
+    declare_merge(lib)
+
+
+def declare_sketch(lib) -> None:
+    """argtypes of csrc/sketch.cu's entry points (also for a library built
+    from that source alone)."""
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sketch_grid_config.restype = ci
     lib.sketch_grid_config.argtypes = [ctypes.POINTER(ci)]
-    lib.launch_sketch_grid.restype = ci
-    lib.launch_sketch_grid.argtypes = [ci, vp, vp, vp, vp, vp, vp, ll, ll, ci,
-                                       ci, ci, ll, vp]
-    declare_merge(lib)
+    lib.launch_grid_min.restype = ci
+    lib.launch_grid_min.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ci, ci,
+                                    ci, ll, vp]
+    lib.launch_grid_max.restype = ci
+    lib.launch_grid_max.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, ci, ll,
+                                    vp]
 
 
 def declare_merge(lib) -> None:
@@ -162,17 +172,19 @@ def _compile(path: str) -> None:
                       output="".join(output))
 
 
-def build_variants(configs, defines) -> dict:
-    """{config: (ctypes library, nvcc output)}: csrc/merge.cu built once per
-    configuration with the -D flags ``defines(config)`` into build/sweep/
-    (one nvcc each, all started together), its entry points declared.  For
-    the tile sweeps (sweep_compact.py, sweep_merge.py)."""
+def build_variants(configs, defines, source: str = "merge.cu",
+                   declare=declare_merge) -> dict:
+    """{config: (ctypes library, nvcc output)}: csrc/``source`` built once
+    per configuration with the -D flags ``defines(config)`` into
+    build/sweep/ (one nvcc each, all started together), its entry points
+    declared by ``declare``.  For the sweeps (sweep_compact.py,
+    sweep_merge.py, sweep_grid.py)."""
     os.makedirs(SWEEP_DIR, exist_ok=True)
-    src = os.path.join(CSRC_DIR, "merge.cu")
+    src = os.path.join(CSRC_DIR, source)
     jobs = []
     for cfg in configs:
         flags = defines(cfg)
-        so = os.path.join(SWEEP_DIR, "merge" + "".join(
+        so = os.path.join(SWEEP_DIR, source.split(".")[0] + "".join(
             "_" + f.split("=")[1] for f in flags) + ".so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-shared", *flags, "-o", so, src]
         jobs.append((cfg, so, subprocess.Popen(
@@ -184,7 +196,7 @@ def build_variants(configs, defines) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {cfg}:\n{out}")
         lib = ctypes.CDLL(so)
-        declare_merge(lib)
+        declare(lib)
         libs[cfg] = (lib, out)
     return libs
 

@@ -41,9 +41,11 @@ WALKS = 4                # cycle-walk rounds after the first encryption
 # int64 temporaries of one step stay near 64 MB each
 _PLAIN_CHUNK = 1 << 23
 
-# the kernel's constants (csrc/sketch.cu): threads per block at most,
-# positions staged per step
+# the kernels' constants (csrc/sketch.cu): threads per block at most, G2's
+# positions staged per step, G1's slots a thread, G1's positions staged per
+# step, G1's slots a group at most
 _THREADS, _CHUNK = 256, 1024
+G1_SLOTS_PER_THREAD, _G1_CHUNK, _MAX_GROUP = 8, 1024, 2048
 _WANT_TILES = 32         # tiles per SM wanted before a row is split
 _MIN_SPAN = 512          # fewest positions of a split row per tile
 
@@ -97,14 +99,21 @@ def _check_inputs(xs, valid, slotc) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """A tile is one row x ``span`` positions x a group of ``slots``
-    slots; a block has ``subsets`` x ``slots`` threads (rounded up to a
-    warp), thread t owning slot t % slots and position subset
-    t // slots."""
+    slots.  A slot set of ``slots / per_thread`` threads holds the group,
+    ``per_thread`` slots a thread: thread t of a block (``subsets`` slot
+    sets, rounded up to a warp) holds slots ``t % T + r * T``, r <
+    per_thread (T = :attr:`threads_per_set`), and position subset t // T.
+    G2 holds one slot a thread."""
     slots: int
+    per_thread: int
     subsets: int
     span: int
     spans: int
     groups: int
+
+    @property
+    def threads_per_set(self) -> int:
+        return self.slots // self.per_thread
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -112,13 +121,15 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def plan(n: int, P: int, m: int, sms: int = 132) -> Plan:
-    """The tile plan: slot groups of min(m, 256) slots, as many position
-    subsets as fill 256 threads, and a row's positions split over spans of
-    at least _MIN_SPAN when whole rows give fewer than _WANT_TILES tiles
-    per SM."""
-    slots = min(m, _THREADS)
-    subsets = _THREADS // slots
+def plan(n: int, P: int, m: int, sms: int = 132,
+         per_thread: int = 1) -> Plan:
+    """The tile plan: groups of up to min(256 x per_thread, 2048) slots
+    held by ceil(group / per_thread) threads, as many position subsets as
+    fill 256 threads, and a row's positions split over spans of at least
+    _MIN_SPAN when whole rows give fewer than _WANT_TILES tiles per SM."""
+    per_set = _cdiv(min(m, _THREADS * per_thread, _MAX_GROUP), per_thread)
+    slots = per_set * per_thread
+    subsets = _THREADS // per_set
     groups = _cdiv(m, slots)
     whole = n * groups
     want = _WANT_TILES * sms
@@ -126,42 +137,36 @@ def plan(n: int, P: int, m: int, sms: int = 132) -> Plan:
     if 0 < whole < want and P > _MIN_SPAN:
         spans = min(_cdiv(P, _MIN_SPAN), _cdiv(want, whole))
     span = max(1, _cdiv(P, spans))
-    return Plan(slots=slots, subsets=subsets, span=span,
-                spans=_cdiv(P, span) if P else 1, groups=groups)
+    return Plan(slots=slots, per_thread=per_thread, subsets=subsets,
+                span=span, spans=_cdiv(P, span) if P else 1, groups=groups)
 
 
 _config: dict = {}       # device index -> SM count (constants checked)
 
 
-def launch_plan(dev: torch.device, n: int, P: int, m: int) -> Plan:
+def library_config(lib) -> tuple:
+    """csrc/sketch.cu's constants in a built library (sketch_grid_config):
+    threads, G2's chunk, G1's slots a thread, G1's chunk, G1's largest
+    group."""
+    cfg = (ctypes.c_int * 5)()
+    lib.sketch_grid_config(cfg)
+    return tuple(cfg)
+
+
+def launch_plan(dev: torch.device, n: int, P: int, m: int,
+                per_thread: int = 1) -> Plan:
     """:func:`plan` with the card's SM count; the library's constants must
     be this module's."""
     from .. import _build
     if dev.index not in _config:
-        cfg = (ctypes.c_int * 2)()
-        _build.load().sketch_grid_config(cfg)
-        if tuple(cfg) != (_THREADS, _CHUNK):
-            raise RuntimeError(f"csrc/sketch.cu's constants {tuple(cfg)} != "
-                               f"(_THREADS, _CHUNK) here")
+        want = (_THREADS, _CHUNK, G1_SLOTS_PER_THREAD, _G1_CHUNK, _MAX_GROUP)
+        got = library_config(_build.load())
+        if got != want:
+            raise RuntimeError(f"csrc/sketch.cu's constants {got} != {want} "
+                               f"here")
         _config[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    return plan(n, P, m, _config[dev.index])
-
-
-def _launch(is_min: bool, x, a, b, valid, slotc) -> torch.Tensor:
-    from .. import _build
-    n, P = x.shape
-    m = slotc.shape[0]
-    dev = x.device
-    out = torch.full((n, m), -1 if is_min else 0, dtype=torch.int32,
-                     device=dev)
-    pl = launch_plan(dev, n, P, m)
-    ptr = (lambda t: None if t is None else t.data_ptr())
-    _build.launch(_build.load().launch_sketch_grid, int(is_min),
-                  x.data_ptr(), ptr(a), ptr(b), valid.data_ptr(),
-                  slotc.data_ptr(), out.data_ptr(), n, P, m, pl.slots,
-                  pl.subsets, pl.span, device=dev)
-    return out
+    return plan(n, P, m, _config[dev.index], per_thread)
 
 
 def grid_min(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -173,7 +178,14 @@ def grid_min(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     dev = _check_inputs((x, a, b), valid, slotc)
     if dev.type == "cpu":
         return grid_min_ref(x, a, b, valid, slotc)
-    out = _launch(True, x, a, b, valid, slotc)
+    from .. import _build
+    n, P = x.shape
+    m = slotc.shape[0]
+    out = torch.full((n, m), -1, dtype=torch.int32, device=dev)
+    pl = launch_plan(dev, n, P, m, G1_SLOTS_PER_THREAD)
+    _build.launch(_build.load().launch_grid_min, *(t.data_ptr() for t in (
+        x, a, b, valid, slotc, out)), n, P, m, pl.threads_per_set,
+        pl.subsets, pl.span, device=dev)
     launches_min += 1
     return out
 
@@ -187,7 +199,14 @@ def grid_max(x: torch.Tensor, valid: torch.Tensor,
     dev = _check_inputs((x,), valid, salts)
     if dev.type == "cpu":
         return grid_max_ref(x, valid, salts)
-    out = _launch(False, x, None, None, valid, salts)
+    from .. import _build
+    n, P = x.shape
+    m = salts.shape[0]
+    out = torch.zeros((n, m), dtype=torch.int32, device=dev)
+    pl = launch_plan(dev, n, P, m)
+    _build.launch(_build.load().launch_grid_max, *(t.data_ptr() for t in (
+        x, valid, salts, out)), n, P, m, pl.slots, pl.subsets, pl.span,
+        device=dev)
     launches_max += 1
     return out
 

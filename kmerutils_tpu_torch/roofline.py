@@ -19,7 +19,10 @@ A kernel's bound is the larger of two times for the same work:
   bitwise step (an xor, an xor and a mask) one LOP3, a shift one SHF, a
   test, a min or a max one instruction, a pack of two disjoint bit fields
   one IMAD.  :func:`grid_instructions_per_pair` counts the kernels' own
-  inner loops in their SASS, to say how far the code is from that count.
+  inner loops in their SASS, to say how far the code is from that count,
+  and splits them by the pipe they issue to (:func:`pipe_of`): the bound
+  takes 128 lanes an SM, but the ALU and FMA pipes have 64 each, so the
+  busier of the two sets a kernel's floor.
 
 Used by chip_smoke.py; nothing here runs at import time, and nothing here
 is on the port's data path.
@@ -138,11 +141,38 @@ def _is_draw(op: str, rest: str, marker) -> bool:
     return op.startswith("I2F") and "U32" in op      # float(h >> 8)
 
 
+# the pipe an instruction issues to on Hopper (sm_90), as counted here:
+# integer multiplies and multiply-adds to the FMA pipe (the wide and high
+# forms kept apart: they occupy it longer), logic, shifts, adds, compares,
+# min/max and selects to the ALU pipe, each 64 lanes an SM; shared and
+# global memory to the LSU; the rest (branches, votes, barriers, moves of
+# uniform registers) counted as "other"
+_ALU_OPS = ("LOP3", "SHF", "IADD3", "ISETP", "IMNMX", "VIMNMX", "SEL", "LEA",
+            "PLOP3", "P2R", "R2P", "FLO", "POPC", "BREV", "PRMT", "IABS",
+            "MOV", "SGXT", "BMSK", "LOP")
+_MEM_OPS = ("LDS", "STS", "ATOMS", "LDG", "STG", "LD", "ST", "ATOM", "RED",
+            "LDC", "LDSM")
+
+
+def pipe_of(op: str) -> str:
+    """"fma", "fma_wide" (IMAD.HI / IMAD.WIDE), "alu", "mem" or
+    "other"."""
+    base = op.split(".")[0]
+    if base == "IMAD":
+        return "fma_wide" if (".HI" in op or ".WIDE" in op) else "fma"
+    if base in _ALU_OPS:
+        return "alu"
+    if base in _MEM_OPS:
+        return "mem"
+    return "other"
+
+
 def draw_loop(insns, spellings=(DRAW_MARKER,), fallback: bool = True) -> dict:
     """The innermost loop that holds draws: its instruction count, the
     draws one pass makes (instructions with an immediate spelled as one of
     ``spellings``, or with ``fallback``, where the constant sits in a
-    register, unsigned int-to-float conversions) and their ratio."""
+    register, unsigned int-to-float conversions), their ratio, and the
+    loop's instructions by pipe (:func:`pipe_of`) per draw."""
     loops = []
     marker = spellings if any(_has(r, spellings) for _, _, r in insns) \
         else None
@@ -154,16 +184,19 @@ def draw_loop(insns, spellings=(DRAW_MARKER,), fallback: bool = True) -> dict:
             body = [i for i in insns if int(tgt.group(1), 16) <= i[0] <= addr]
             draws = sum(_is_draw(o, r, marker) for _, o, r in body)
             if draws:
-                loops.append((int(tgt.group(1), 16), addr, len(body), draws))
+                loops.append((int(tgt.group(1), 16), addr, body, draws))
     inner = [lp for lp in loops
              if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1]
                         for o in loops)]
     if not inner:
         raise RuntimeError("no loop with draws found in the SASS")
-    lo, hi, n, draws = max(inner, key=lambda lp: (lp[3], -lp[2]))
-    return {"instructions": n, "draws": draws,
-            "instructions_per_draw": n / draws,
-            "range": [hex(lo), hex(hi)]}
+    lo, hi, body, draws = max(inner, key=lambda lp: (lp[3], -len(lp[2])))
+    pipes: dict[str, float] = {}
+    for _, op, _ in body:
+        pipes[pipe_of(op)] = pipes.get(pipe_of(op), 0) + 1 / draws
+    return {"instructions": len(body), "draws": draws,
+            "instructions_per_draw": len(body) / draws,
+            "pipes_per_draw": pipes, "range": [hex(lo), hex(hi)]}
 
 
 def tournament_instructions_per_draw(lib_path: str) -> dict[str, dict]:
@@ -173,23 +206,32 @@ def tournament_instructions_per_draw(lib_path: str) -> dict[str, dict]:
             if "tournament" in name and "finish" not in name}
 
 
+GRID_KERNELS = {"grid_min": "grid_min_kernel", "grid_max": "grid_max_kernel"}
+
+
 def grid_instructions_per_pair(lib_path: str) -> dict[str, dict]:
-    """draw_loop of the grid kernels G1 ("grid_min") and G2 ("grid_max"),
-    counted per (position, slot) pair by their PAIR_MARKERS."""
+    """draw_loop of the grid kernels G1 ("grid_min", ``grid_min_kernel``)
+    and G2 ("grid_max", ``grid_max_kernel``), counted per (position, slot)
+    pair by their PAIR_MARKERS.  Raises when either kernel is missing."""
+    funcs = sass_functions(lib_path)
     out = {}
-    for name, insns in sass_functions(lib_path).items():
-        if "grid_kernel" in name:
-            kind = "grid_min" if "ILb1E" in name else "grid_max"
-            out[kind] = draw_loop(insns, _spellings(PAIR_MARKERS[kind]),
-                                  fallback=False)
+    for kind, kernel in GRID_KERNELS.items():
+        found = [insns for name, insns in funcs.items() if kernel in name]
+        if len(found) != 1:
+            raise RuntimeError(f"{len(found)} kernels named {kernel} in "
+                               f"{lib_path}")
+        out[kind] = draw_loop(found[0], _spellings(PAIR_MARKERS[kind]),
+                              fallback=False)
     return out
 
 
-def walk_rounds(a, b, valid, m: int, chunk: int = 1 << 24) -> int:
-    """The cycle-walk rounds after the first encryption that G1's keyed
-    permutation needs, summed over the valid positions (key halves a, b:
-    int32[n, P] u32 bit patterns) and the m slots: a round is needed while
-    the value lies outside [0, m), at most WALKS times."""
+def walk_stats(a, b, valid, m: int, chunk: int = 1 << 24) -> dict:
+    """G1's cycle walk over the valid positions (key halves a, b:
+    int32[n, P] u32 bit patterns) and the m slots: "rounds", the walk
+    rounds after the first encryption that the data needs, summed (a round
+    is needed while the value lies outside [0, m), at most WALKS times),
+    and "clamped", the pairs still outside [0, m) after WALKS rounds, which
+    the clamp to m - 1 ends."""
     import torch
 
     from .ops.bitops import M32
@@ -198,16 +240,18 @@ def walk_rounds(a, b, valid, m: int, chunk: int = 1 << 24) -> int:
     ka = a[valid].to(torch.int64) & M32
     kb = b[valid].to(torch.int64) & M32
     j = torch.arange(m, dtype=torch.int64, device=a.device)
-    total = torch.zeros((), dtype=torch.int64, device=a.device)
+    rounds = torch.zeros((), dtype=torch.int64, device=a.device)
+    clamped = torch.zeros((), dtype=torch.int64, device=a.device)
     step = max(1, chunk // m)
     for p0 in range(0, ka.numel(), step):
         a2, b2 = ka[p0:p0 + step, None], kb[p0:p0 + step, None]
         x = encrypt_pow2(j, a2, b2, nbits)
         for _ in range(WALKS):
             need = x >= m
-            total += need.sum()
+            rounds += need.sum()
             x = torch.where(need, encrypt_pow2(x, a2, b2, nbits), x)
-    return int(total)
+        clamped += (x >= m).sum()
+    return {"rounds": int(rounds), "clamped": int(clamped)}
 
 
 def grid_work(name: str, args) -> tuple[int, int]:
@@ -215,7 +259,7 @@ def grid_work(name: str, args) -> tuple[int, int]:
     valid, slotc) or G2 ("grid_max", args x, valid, salts) needs: per valid
     (position, slot) pair G2_OPS_PER_PAIR, or G1_OPS_PER_PAIR plus
     G1_OPS_PER_ROUND for the first round of the permutation and for each
-    walk round this data needs (:func:`walk_rounds`); bytes for the u32
+    walk round this data needs (:func:`walk_stats`); bytes for the u32
     inputs and the valid byte per position read once and the [n, m] u32
     results written once."""
     valid, m = args[-2], args[-1].numel()
@@ -225,5 +269,5 @@ def grid_work(name: str, args) -> tuple[int, int]:
     nbytes = n * P * (4 * nwords + 1) + n * m * 4
     if name == "grid_max":
         return pairs * G2_OPS_PER_PAIR, nbytes
-    rounds = pairs + walk_rounds(args[1], args[2], valid, m)
+    rounds = pairs + walk_stats(args[1], args[2], valid, m)["rounds"]
     return pairs * G1_OPS_PER_PAIR + rounds * G1_OPS_PER_ROUND, nbytes

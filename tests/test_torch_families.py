@@ -129,7 +129,7 @@ def item_grid(seed: int, wide: bool, n: int = 6, P: int = 90):
     return items, t, valid
 
 
-@pytest.mark.parametrize("m", [1, 13, 200])
+@pytest.mark.parametrize("m", [1, 13, 129, 200, 257])
 @pytest.mark.parametrize("wide", [False, True])
 def test_superminhash_items_match_jax(wide, m):
     items, t, valid = item_grid(40 + m, wide)
@@ -151,6 +151,54 @@ def test_superminhash_items_match_jax(wide, m):
         np.asarray(jsm.superminhash_jaccard(np.asarray(want2)[0],
                                             np.asarray(want2)))
         .astype(np.float32))
+
+
+def numpy_walk(a, b, m: int):
+    """SUPER2's cycle walk of every slot under keys (a odd, b: u32[k]) in
+    numpy: (pi before the clamp u32[k, m], walk rounds taken, pairs still
+    >= m after the four walks, which the clamp ends)."""
+    nbits = max((m - 1).bit_length(), 1)
+    mask = np.uint32((1 << nbits) - 1)
+    sh = np.uint32(max(nbits // 2, 1))
+    a2, b2 = a[:, None], b[:, None]
+
+    def enc(v):
+        v = ((v * a2) ^ b2) & mask
+        return (v ^ (v >> sh)) & mask
+
+    with np.errstate(over="ignore"):
+        v = enc(np.arange(m, dtype=np.uint32)[None, :])
+        walks = 0
+        for _ in range(4):
+            need = v >= m
+            walks += int(need.sum())
+            v = np.where(need, enc(v), v)
+    return v, walks, int((v >= m).sum())
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_superminhash_four_walk_clamp_matches_jax(wide):
+    """m = 129 (nbits 8: about half of the pairs walk): the data holds
+    pairs still >= m after the four walk rounds, and both the permutation
+    (clamped to m - 1) and the signatures equal JAX's."""
+    m = 129
+    items, t, valid = item_grid(61, wide, n=8, P=120)
+    tv = torch.from_numpy(valid)
+    args = tsm.grid_min_args(t, tv, m, 3)
+    a, b = (args[i][tv].numpy().view(np.uint32) for i in (1, 2))
+    pi, _, clamped = numpy_walk(a, b, m)
+    assert clamped > 0
+    sig2, _ = tsm.superminhash2(t, tv, m, 3)
+    assert np.array_equal(to_numpy(sig2),
+                          np.asarray(jsm.superminhash2(items, valid, m, 3)[0]))
+    keys = items.reshape(-1)[:, None].astype(np.uint64)
+    perm = tsm._small_perm(torch.arange(m)[None, :],
+                           torch.from_numpy(keys.view(np.int64).copy()), m)
+    jperm = np.asarray(jsm._small_perm(np.arange(m, dtype=np.uint64)[None, :],
+                                       keys, m))
+    assert np.array_equal(perm.numpy(), jperm)
+    # each key maps one slot to m - 1; the clamped pairs add more
+    assert (jperm == m - 1).sum() > jperm.shape[0]
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +374,7 @@ def numpy_super_keys(x, a, b, m: int) -> np.ndarray:
     return (pi << np.uint32(32 - nbits)) | (h >> np.uint32(nbits))
 
 
-@pytest.mark.parametrize("m", [1, 13, 200])
+@pytest.mark.parametrize("m", [1, 13, 129, 200, 257])
 def test_plain_grid_reductions_match_numpy(m):
     rng = np.random.default_rng(80 + m)
     n, P = 5, 40
@@ -360,13 +408,66 @@ def test_grid_plan_covers_rows():
     assert (pl.slots, pl.groups, pl.spans) == (256, 16, 1)
     pl = sketch_grid.plan(3, 100, 13)
     assert (pl.slots, pl.subsets, pl.spans) == (13, 19, 1)
+    # G1: 8 slots a thread
+    pl = sketch_grid.plan(1024, 5993, 200, per_thread=8)
+    assert (pl.threads_per_set, pl.subsets, pl.groups) == (25, 10, 1)
+    pl = sketch_grid.plan(1024, 5993, 4096, per_thread=8)
+    assert (pl.slots, pl.threads_per_set, pl.subsets, pl.groups) == (
+        2048, 256, 1, 2)
 
 
-@pytest.mark.parametrize("m", [1, 13, 200])
+def plan_coverage(pl, n: int, P: int, m: int, chunk: int) -> np.ndarray:
+    """How often the kernels' index map visits each (row, position, slot)
+    under plan pl: tile (row, span, group); thread t of the block holds
+    slots g * slots + t % T + r * T (r < per_thread, T threads a slot set)
+    and, within each staged chunk of the span, the compacted positions i
+    with i % subsets == t // T (all positions valid here)."""
+    T, Q, R = pl.threads_per_set, pl.subsets, pl.per_thread
+    threads = -(-T * Q // 32) * 32
+    t = np.arange(threads)
+    ts, sub = t % T, t // T
+    counts = np.zeros((n, P, m), np.int16)
+    for row in range(n):
+        for sp in range(pl.spans):
+            p0, p1 = sp * pl.span, min(P, (sp + 1) * pl.span)
+            off = np.arange(p1 - p0)
+            p_sub = (off % chunk) % Q          # the subset of each position
+            for g in range(pl.groups):
+                cover = np.zeros((Q, m), np.int16)
+                for r in range(R):
+                    j = g * pl.slots + ts + r * T
+                    ok = (sub < Q) & (j < m)
+                    np.add.at(cover, (sub[ok], j[ok]), 1)
+                counts[row, p0:p1] += cover[p_sub]
+    return counts
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["whole", "split"])
+@pytest.mark.parametrize("per_thread", [1, 8], ids=["G2", "G1"])
+@pytest.mark.parametrize("m", [1, 13, 129, 199, 200, 201, 256, 257, 4096])
+def test_grid_plan_visits_every_pair_once(m, per_thread, split):
+    """Every (row, position, slot) is visited exactly once by the plan's
+    index map, whole rows (positions over more than one staging chunk) and
+    a row split over spans, with at most 256 threads a block and at most
+    2048 slots a group."""
+    n, P, sms = (1, 2600, 132) if split else (2, 1500, 0)
+    pl = sketch_grid.plan(n, P, m, sms, per_thread)
+    assert (pl.spans > 1) == split
+    assert pl.threads_per_set * pl.subsets <= 256
+    assert pl.slots <= 2048 and pl.slots == pl.threads_per_set * per_thread
+    # at m = 200 and 8 slots a thread nearly every thread works
+    if (m, per_thread) == (200, 8):
+        assert pl.threads_per_set * pl.subsets == 250
+    chunk = sketch_grid._G1_CHUNK if per_thread > 1 else sketch_grid._CHUNK
+    assert (plan_coverage(pl, n, P, m, chunk) == 1).all()
+
+
+@pytest.mark.parametrize("m", [1, 13, 129, 200])
 def test_grid_work_counts_the_walk_rounds_the_data_needs(m):
     """roofline.grid_work: G2 6 operations a valid pair; G1 10 a pair and
     5 a permutation round, the walk's rounds counted from the data, as a
-    numpy cycle walk counts them."""
+    numpy cycle walk counts them; roofline.walk_stats also counts the
+    pairs that the clamp after the four walks ends."""
     from kmerutils_tpu_torch import roofline
     rng = np.random.default_rng(90 + m)
     n, P = 4, 50
@@ -375,19 +476,7 @@ def test_grid_work_counts_the_walk_rounds_the_data_needs(m):
     a |= np.uint32(1)
     valid = rng.random((n, P)) < 0.7
     valid[2] = False
-    nbits = max((m - 1).bit_length(), 1)
-    mask = np.uint32((1 << nbits) - 1)
-    sh = np.uint32(max(nbits // 2, 1))
-    a3, b3 = a[valid][:, None], b[valid][:, None]
-    with np.errstate(over="ignore"):
-        v = ((np.arange(m, dtype=np.uint32)[None, :] * a3) ^ b3) & mask
-        v = (v ^ (v >> sh)) & mask
-        walks = 0
-        for _ in range(4):
-            need = v >= m
-            walks += int(need.sum())
-            w = ((v * a3) ^ b3) & mask
-            v = np.where(need, (w ^ (w >> sh)) & mask, v)
+    _, walks, clamped = numpy_walk(a[valid], b[valid], m)
     pairs = int(valid.sum()) * m
     t = [torch.from_numpy(z.view(np.int32).copy()) for z in (x, a, b)]
     tv = torch.from_numpy(valid)
@@ -397,7 +486,63 @@ def test_grid_work_counts_the_walk_rounds_the_data_needs(m):
     assert nbytes == n * P * 13 + n * m * 4
     assert roofline.grid_work("grid_max", (t[0], tv, sc)) == (
         6 * pairs, n * P * 5 + n * m * 4)
+    assert roofline.walk_stats(t[1], t[2], tv, m, chunk=999) == {
+        "rounds": walks, "clamped": clamped}
     assert walks > 0          # no m here is a power of two
+    assert clamped > 0 or m != 129
+
+
+# a loop of SASS as cuobjdump prints it: one G1-like pass of two pairs
+_SASS = """
+        /*0100*/                   LDS.128 R4, [R2] ;
+        /*0110*/                   IMAD R8, R4, R10, RZ ;
+        /*0120*/                   LOP3.LUT R8, R8, R5, RZ, 0x3c, !PT ;
+        /*0130*/                   IMAD.HI.U32 R9, R8, R11, RZ ;
+        /*0140*/                   IMAD R9, R9, -0x3d4d51c3, RZ ;
+        /*0150*/                   SHF.R.U32.HI R12, RZ, 0xd, R9 ;
+        /*0160*/                   IMAD R13, R12, -0x3d4d51c3, RZ ;
+        /*0170*/                   ISETP.GE.U32.AND P0, PT, R13, R14, PT ;
+        /*0180*/                   IMNMX.U32 R15, R15, R13, PT ;
+        /*0190*/              @!P0 BRA 0x100 ;
+"""
+
+
+def test_sass_pipes_per_pair():
+    """roofline.draw_loop finds the loop by its pair markers (0xC2B2AE3D,
+    printed as -0x3d4d51c3) and splits its instructions by pipe."""
+    from kmerutils_tpu_torch import roofline
+    insns = [(int(mt.group(1), 16), mt.group(2), mt.group(3))
+             for mt in roofline._INSN.finditer(_SASS)]
+    r = roofline.draw_loop(insns, roofline._spellings(0xC2B2AE3D),
+                           fallback=False)
+    assert (r["instructions"], r["draws"]) == (10, 2)
+    assert r["pipes_per_draw"] == {"mem": 0.5, "fma": 1.5, "alu": 2.0,
+                                   "fma_wide": 0.5, "other": 0.5}
+    assert [roofline.pipe_of(op) for op in (
+        "IMAD.WIDE.U32", "IMAD.MOV.U32", "SHF.L.U32", "ATOMS.MIN", "VOTE.ANY",
+        "POPC")] == ["fma_wide", "fma", "alu", "mem", "other", "alu"]
+
+
+@pytest.mark.parametrize("names,ok", [
+    (["_ZN12_GLOBAL__N_115grid_min_kernelEPKj", "_ZN12_GLOBAL__N_115grid_max"
+      "_kernelEPKj"], True),
+    (["_ZN12_GLOBAL__N_115grid_max_kernelEPKj"], False),
+    (["_ZN12_GLOBAL__N_111grid_kernelILb1EEvPKj"], False)])
+def test_grid_sass_lookup_fails_loudly(monkeypatch, names, ok):
+    """roofline.grid_instructions_per_pair finds G1 and G2 by their kernel
+    names, and raises when either is missing."""
+    from kmerutils_tpu_torch import roofline
+    funcs = {name: [(int(mt.group(1), 16), mt.group(2), mt.group(3).replace(
+        "-0x3d4d51c3", "-0x61c8864f" if "max" in name else "-0x3d4d51c3"))
+        for mt in roofline._INSN.finditer(_SASS)] for name in names}
+    monkeypatch.setattr(roofline, "sass_functions", lambda path: funcs)
+    if ok:
+        r = roofline.grid_instructions_per_pair("lib.so")
+        assert set(r) == {"grid_min", "grid_max"}
+        assert r["grid_min"]["instructions_per_draw"] == 5.0
+    else:
+        with pytest.raises(RuntimeError, match="kernels named"):
+            roofline.grid_instructions_per_pair("lib.so")
 
 
 # ---------------------------------------------------------------------------
