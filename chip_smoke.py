@@ -97,19 +97,23 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    the shapes of ``GRID_CHECKS`` with random u32 / u64 items (half >= 2^31
    / 2^63): m = 1, 13, 129, 199, 200, 201, 257, 1000 and 4096 over 64 x
    2000 positions (not a multiple of the staging chunk; all-invalid rows, a
-   row of one valid position), rows of one position, and one split row at
+   row of one valid position), rows of one position, one split row at
    m = 129, where the data must hold pairs that the clamp after four walk
-   rounds ends (``roofline.walk_stats``); timed at the bench shape and the
-   collection row with CUDA events against its plain version and its bound
+   rounds ends (``roofline.walk_stats``), whole rows of 2047 and 2049
+   positions around G2's 2048-position chunk, and rows of 1-3 valid
+   positions at m = 200 and 4096 (the copies that fill G2's last shared
+   load); timed at the bench shape and the collection row with CUDA
+   events against its plain version and its bound
    (kmerutils_tpu_torch/roofline.py: the integer operations the function
    needs per (position, slot) pair, G1's cycle walk counted from the
-   data, over the card's issue rate; the kernel's own SASS count beside
-   it, by pipe); HLL's whole ``sketch_batch`` on the card against the CPU
-   at the bench shape and on a ragged batch (``sketch_collection`` too),
-   k=8 and k=21, registers equal but where the float32 value before the
-   floor lies within 2 ulp of an integer; ``sketch_batch`` of the five
-   families at the bench shape; ``datasketcher -a SUPER / SUPER2 / OPTDENS /
-   REVOPTDENS / HLL -k 8`` through the CLI on ``cuda`` over phase 5's file
+   data, over the card's issue rate; G2's ALU-pipe floor and the kernel's
+   own SASS count beside it, by pipe); HLL's whole ``sketch_batch`` on the
+   card against the CPU at the bench shape and on a ragged batch
+   (``sketch_collection`` too), k=8 and k=21, registers equal but where
+   the float32 value before the floor lies within 2 ulp of an integer;
+   ``sketch_batch`` of the five families at the bench shape;
+   ``datasketcher -a SUPER / SUPER2 / OPTDENS / REVOPTDENS / HLL -k 8``
+   through the CLI on ``cuda`` over phase 5's file
    (G1 / G2 launch counters > 0), each dump read back and 64 sampled reads
    sketched again on the card, through the plain path on the card (every
    kernel replaced by its plain version) and read by read on the CPU: the
@@ -168,9 +172,10 @@ CUDA-event ms, host ms to enqueue one call and device ms (torch.profiler),
 every result equal to the plain version; K3/K5 and K4/K6 at phase 7's
 timed shapes and K7 at phase 9's seven timed shapes the same way (event ms
 and device ms); G1/G2 at phase 11's three timed shapes (each tree's SASS
-count per pair; event ms, host enqueue ms and device ms); then
-``datasketcher -b 512 -k 8``
-of each package over phase 5's ONT-like file (wall ms, device ms, the
+count per pair; event ms, host enqueue ms and device ms) and HLL's whole
+``sketch_batch`` of the bench batch at k=8 and k=21 (the same three, both
+trees' registers equal); then ``datasketcher -b 512 -k 8`` of each
+package over phase 5's ONT-like file (wall ms, device ms, the
 tournament kernels' device ms).  It prints one JSON line per result and
 the card line, and no ``ok`` line.
 
@@ -2111,18 +2116,25 @@ def grid_case(torch, G, name: str, args, what: str) -> int:
     return err
 
 
-def random_items(torch, rng, n: int, P: int, wide: bool):
+def random_items(torch, rng, n: int, P: int, wide: bool,
+                 few: bool = False):
     """Random items with half of them >= 2^31 (u32) or >= 2^63 (u64), a
     valid mask with (when n > 1) all-invalid rows and a row of one valid
-    position."""
+    position; with ``few``, row r holds 1 + r % 3 valid positions at random
+    places instead."""
     if wide:
         a = rng.integers(0, 1 << 64, size=(n, P), dtype=np.uint64)
         items = torch.from_numpy(a.view(np.int64)).cuda()
     else:
         a = rng.integers(0, 1 << 32, size=(n, P), dtype=np.uint64)
         items = torch.from_numpy(a.astype(np.uint32).view(np.int32)).cuda()
-    v = rng.random((n, P)) < 0.9
-    if n > 1:
+    if few:
+        v = np.zeros((n, P), bool)
+        for r in range(n):
+            v[r, rng.choice(P, size=1 + r % 3, replace=False)] = True
+    else:
+        v = rng.random((n, P)) < 0.9
+    if n > 1 and not few:
         v[::7] = False
         v[1] = False
         v[1, P // 2] = True
@@ -2240,10 +2252,15 @@ GRID_TIMED = ("bench_k8", "bench_k21", "collection_k21")
 # to the clamp), around 200 and 256 (slot sets that are not a multiple of
 # G1's slots a thread or of a warp), 1000 and 4096 (two slot groups of G1);
 # 2000 positions (not a multiple of the staging chunk), one position a row,
-# and one split row
+# and one split row; then (m, rows, positions, few) of G2's chunk and last
+# shared load: whole rows (rows enough that the plan splits none on a card
+# of 132 SMs, _WANT_TILES x 132) of 2047 and 2049 positions around its
+# 2048-position chunk, and rows of 1-3 valid positions (random_items' few)
 GRID_CHECKS = tuple((mm, 64, 2000) for mm in (1, 13, 129, 199, 200, 201, 257,
                                               1000, 4096)) + (
     (200, 5, 1), (129, 1, 300_000))
+GRID_TAIL_CHECKS = ((200, 4224, 2047, False), (200, 4224, 2049, False),
+                    (200, 64, 2000, True), (4096, 64, 2000, True))
 
 
 def grid_kernels_vs_plain(torch, rng, card: str, bench, m: int = 200):
@@ -2270,11 +2287,17 @@ def grid_kernels_vs_plain(torch, rng, card: str, bench, m: int = 200):
     for shape, g1, g2 in grid_timed_shapes(torch, bench, m):
         both(g1, g2, shape)
         timed[shape] = (g1, g2)
-    for mm, n, P in GRID_CHECKS:
+    for mm, n, P, few in tuple((*c, False) for c in GRID_CHECKS) \
+            + GRID_TAIL_CHECKS:
         for wide in (False, True):
-            items, valid = random_items(torch, rng, n, P, wide)
+            items, valid = random_items(torch, rng, n, P, wide, few)
             g1, g2 = grid_args(torch, items, valid, mm, seed=7)
-            what = f"m={mm} {'u64' if wide else 'u32'} items"
+            what = f"m={mm} {'u64' if wide else 'u32'} items" + (
+                ", 1-3 valid positions a row" if few else "")
+            if (mm, n, P, few) in GRID_TAIL_CHECKS and not few:
+                check(G.launch_plan(valid.device, n, P, mm,
+                                    G.G2_SLOTS_PER_THREAD).spans == 1,
+                      f"the plan splits the rows of {n} x {P}")
             if mm == 129:           # the four-walk clamp must fire here
                 walks = rl.walk_stats(g1[1], g1[2], g1[3], mm)
                 print(f"{what}, {n} x {P}: {walks['rounds']} walk rounds, "
@@ -2292,7 +2315,9 @@ def grid_kernels_vs_plain(torch, rng, card: str, bench, m: int = 200):
             bound = rl.bound(nbytes, ops, sms, clock)
             pairs = int(args[-2].sum()) * m
             r = {"ms": ms, "plain_ms": pms, "bound_ms": bound[0],
-                 "bound_by": bound[1], "runs": runs,
+                 "bound_by": bound[1], "alu_floor_ms": rl.alu_floor_ms(
+                     pairs, sms, clock) if name == "grid_max" else None,
+                 "runs": runs,
                  "enqueue_ms": enqueue_ms(torch, kern),
                  "ops_per_pair": ops / pairs,
                  "sass_bound_ms": rl.issue_ms(
@@ -3231,7 +3256,9 @@ def grid_against_baseline(torch, rng, card: str, order) -> None:
     tree through their public wrappers at phase 11's three timed shapes:
     each tree's SASS count per pair, every result equal to the plain
     version, then CUDA-event ms, host ms to enqueue one call and profiler
-    device ms (the output's fill and the kernel) in turns."""
+    device ms (the output's fill and the kernel) in turns; then the same
+    three for HLL's whole ``sketch_batch`` of the bench batch (k=8 and
+    k=21), both trees' registers equal."""
     from kmerutils_tpu_torch import _build, roofline as rl
     from kmerutils_tpu_torch.ops import sketch_grid as G
     from kmerutils_tpu_torch.profile_sketch import profile
@@ -3265,16 +3292,47 @@ def grid_against_baseline(torch, rng, card: str, order) -> None:
             for k in fns:
                 res[k]["device_ms"] = profile(fns[k], 5)["device_ms_per_call"]
             ops, nbytes = rl.grid_work(name, args)
+            pairs = int(args[-2].sum()) * args[-1].numel()
             print(json.dumps({"timing": f"{name}_{shape}",
                               "rows": args[0].shape[0],
                               "P": args[0].shape[1], **res,
                               "bound_ms": rl.bound(nbytes, ops, sms,
                                                    clock)[0],
+                              "alu_floor_ms": rl.alu_floor_ms(
+                                  pairs, sms, clock)
+                              if name == "grid_max" else None,
                               "card": card}), flush=True)
             del want, fns
         del g1, g2
+    for k in (8, 21):               # HLL's whole sketch_batch, which runs G2
+        fns = {key: functools.partial(hll_sketcher(pkg, k).sketch_batch,
+                                      bench)
+               for key, pkg in (("baseline", "baseline_port"),
+                                ("this", "kmerutils_tpu_torch"))}
+        check(torch.equal(fns["baseline"](), fns["this"]()),
+              f"HLL sketch_batch k={k}: this tree != the baseline")
+        res = {key: {"ms": [], "enqueue_ms": []} for key in fns}
+        for key in order:
+            res[key]["ms"].append(cuda_ms(torch, fns[key], 20))
+        for key in order:
+            res[key]["enqueue_ms"].append(enqueue_ms(torch, fns[key]))
+        for key in fns:
+            res[key]["device_ms"] = profile(fns[key],
+                                            5)["device_ms_per_call"]
+        print(json.dumps({"timing": f"hll_sketch_batch_k{k}",
+                          "rows": bench.n_reads, **res,
+                          "card": card}), flush=True)
     del bench
     torch.cuda.empty_cache()
+
+
+def hll_sketcher(pkg: str, k: int, m: int = 200):
+    """An HLL ``Sketcher`` of the port package ``pkg`` (this tree's, or a
+    baseline's imported by :func:`load_port`)."""
+    params = importlib.import_module(pkg + ".sketch.params")
+    return importlib.import_module(pkg + ".sketch.jaccard").Sketcher(
+        params.SeqSketcherParams(kmer_size=k, sketch_size=m,
+                                 algo=params.SketchAlgo.HLL))
 
 
 def main(argv=None) -> int:
@@ -3396,6 +3454,7 @@ def main(argv=None) -> int:
             "ms": r["bench_k8"]["ms"], "plain_ms": r["bench_k8"]["plain_ms"],
             "bound_ms": r["bench_k8"]["bound_ms"],
             "bound_by": r["bench_k8"]["bound_by"], "library_ms": None,
+            "alu_floor_ms": r["bench_k8"]["alu_floor_ms"],
             "ops_per_pair": r["bench_k8"]["ops_per_pair"],
             "sass_per_pair": r["sass_per_pair"],
             "sass_pipes_per_pair": r["sass_pipes_per_pair"],

@@ -47,9 +47,25 @@
 // fills the output with the identity first.  Min and max do not depend on
 // the order, so the result is exact and deterministic however tiles run.
 //
-// G2 (grid_max_kernel, simple): a block has ceil32(S * Q) threads, S =
-// min(m, 256) slots a group and Q = 256 / S position subsets; thread t owns
-// slot t % S and subset t / S and keeps its running max in a register.
+// G2 (grid_max_kernel) is designed around its ALU work: the function needs 6
+// instructions a pair (LOP3, IMAD, SHF, LOP3, IMAD, IMNMX), 4 of them on the
+// ALU pipe, so everything else is paid per position or per tile:
+// - kG2R slots a thread, in registers.  Thread t owns slots ts + r * T of
+//   the group (ts = t % T, r < kG2R; T = ceil(group / kG2R) threads a slot
+//   set) and position subset t / T, and keeps for each slot its salt and
+//   its running maximum.
+// - A staged position is read once for all kG2R slots: the subsets own
+//   whole groups of kG2Vec consecutive staged positions (subset q the
+//   groups q, q + Q, ...), each group one broadcast LDS.64 / LDS.128, so
+//   the loop's load and control are paid once for kG2Vec x kG2R pairs.
+//   When a chunk's count of valid positions is not a multiple of kG2Vec,
+//   copies of staged position 0 fill its last group: a max is idempotent,
+//   so a repeated valid x changes no maximum.
+// - nvcc folds the maxima of two positions into one VIMNMX3 (a Hopper DPX
+//   instruction) by itself, so a pair costs 3.5 ALU instructions, not 4
+//   (an explicit __vimax3_u32 gave the same SASS by pipe).
+// - At the end of a tile the register maxima of the Q subsets meet in
+//   shared memory (atomicMax), then go to the output.
 //
 // G1 (grid_min_kernel) is designed around its ALU work:
 // - kR slots a thread, in registers.  Thread t owns slots ts + r * T of the
@@ -97,16 +113,36 @@
 #define KMER_GRID_DRAIN 1      // 0: no drain, a wrong result; for timing
 #endif                         // the main loop alone (sweep_grid.py)
 
+// G2's build constants; sweep_grid.py --kernel grid_max builds others
+#ifndef KMER_GRID_MAX_R
+#define KMER_GRID_MAX_R 4          // slots a thread holds in registers
+#endif
+#ifndef KMER_GRID_MAX_VEC
+#define KMER_GRID_MAX_VEC 4        // staged positions a shared load
+#endif
+#ifndef KMER_GRID_MAX_CHUNK
+#define KMER_GRID_MAX_CHUNK 2048   // positions staged per step
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;   // threads per block at most (G1 and G2)
-constexpr int kChunk = 1024;    // G2: positions staged per step
 constexpr int kWalks = 4;       // cycle-walk rounds after the first
+constexpr int kMaxGroup = 2048; // slots a group at most (G1 and G2)
+
+constexpr int kG2R = KMER_GRID_MAX_R;
+constexpr int kG2Vec = KMER_GRID_MAX_VEC;
+constexpr int kG2Chunk = KMER_GRID_MAX_CHUNK;
+static_assert(kG2R >= 1 && kG2R <= 32, "G2's slots a thread");
+static_assert(kG2Vec == 1 || kG2Vec == 2 || kG2Vec == 4,
+              "a shared load is 4, 8 or 16 bytes");
+static_assert(kG2Chunk >= 32 && kG2Chunk % kG2Vec == 0, "G2's chunk");
+static_assert((kG2Chunk + kMaxGroup) * 4 + 4 <= 48 * 1024,
+              "G2's static shared memory");
 
 constexpr int kR = KMER_GRID_R;
 constexpr int kMinChunk = KMER_GRID_CHUNK;
 constexpr int kInline = KMER_GRID_INLINE;
-constexpr int kMaxGroup = 2048;   // G1: slots a group at most
 constexpr int kQueue = 16;        // G1: main-loop positions between drains
 static_assert(kR >= 1 && kR <= 16, "a queue entry holds 16 slot bits");
 static_assert(kMinChunk >= 32 && kMinChunk <= 1 << 16,
@@ -120,38 +156,58 @@ static_assert(kInline >= 0 && kInline <= kWalks, "inline rounds");
 // G2
 // ---------------------------------------------------------------------------
 
+// V staged positions, read with one shared load (LDS, LDS.64, LDS.128)
+template <int V>
+struct __align__(4 * V) Words {
+  uint32_t w[V];
+};
+
+// SetSketch's hash of a pair: position fold x, register salt s
+__device__ __forceinline__ uint32_t hll_hash(uint32_t x, uint32_t s) {
+  uint32_t h = (x ^ s) * 0x9E3779B1u;
+  h ^= h >> 15;
+  return h * 0x85EBCA77u;
+}
+
 __global__ void __launch_bounds__(kThreads)
     grid_max_kernel(const uint32_t* __restrict__ x,
                     const uint8_t* __restrict__ valid,
                     const uint32_t* __restrict__ salts,
-                    uint32_t* __restrict__ out, long long P, int m, int S,
+                    uint32_t* __restrict__ out, long long P, int m, int T,
                     int Q, long long span, int spans, int groups,
                     long long tiles) {
-  __shared__ uint32_t sx[kChunk];
-  __shared__ uint32_t sbest[kThreads];
+  __shared__ __align__(16) uint32_t sx[kG2Chunk];
+  __shared__ uint32_t sbest[kMaxGroup];
   __shared__ int scount;
   const int t = threadIdx.x;
   const int lane = t & 31;
-  const int jl = t % S;
-  const int sub = t / S;
+  const int ts = t % T;
+  const int sub = t / T;
+  const bool worker = sub < Q;
+  const int G = T * kG2R;
 
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int g = (int)(tile % groups);
     const long long rs = tile / groups;
     const int sp = (int)(rs % spans);
     const long long row = rs / spans;
-    const int j = g * S + jl;
-    const bool has_slot = sub < Q && j < m;
-    const uint32_t sc = has_slot ? salts[j] : 0u;
+    const int j0 = g * G + ts;
+    uint32_t sc[kG2R], best[kG2R];
+#pragma unroll
+    for (int r = 0; r < kG2R; ++r) {
+      const int j = j0 + r * T;
+      sc[r] = worker && j < m ? salts[j] : 0u;
+      best[r] = 0u;
+    }
+    for (int s = t; s < G; s += blockDim.x) sbest[s] = 0u;
     const long long p0 = (long long)sp * span;
     const long long p1 = p0 + span < P ? p0 + span : P;
     const long long base_off = row * P;
-    uint32_t best = 0u;
 
-    for (long long c0 = p0; c0 < p1; c0 += kChunk) {
+    for (long long c0 = p0; c0 < p1; c0 += kG2Chunk) {
       if (t == 0) scount = 0;
       __syncthreads();
-      const int cn = (int)(p1 - c0 < kChunk ? p1 - c0 : kChunk);
+      const int cn = (int)(p1 - c0 < kG2Chunk ? p1 - c0 : kG2Chunk);
       for (int i0 = 0; i0 < cn; i0 += blockDim.x) {
         const int i = i0 + t;
         const long long p = base_off + c0 + i;
@@ -164,28 +220,38 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();
       const int cnt = scount;
-      if (has_slot) {
-        for (int i = sub; i < cnt; i += Q) {
-          uint32_t h = (sx[i] ^ sc) * 0x9E3779B1u;
-          h ^= h >> 15;
-          h *= 0x85EBCA77u;
-          best = h > best ? h : best;
+      const int vgroups = (cnt + kG2Vec - 1) / kG2Vec;
+      if (cnt % kG2Vec != 0) {      // block-uniform: cnt is shared
+        if (t < vgroups * kG2Vec - cnt) sx[cnt + t] = sx[0];
+        __syncthreads();
+      }
+      if (worker) {
+        for (int vg = sub; vg < vgroups; vg += Q) {
+          const Words<kG2Vec> xs =
+              reinterpret_cast<const Words<kG2Vec>*>(sx)[vg];
+#pragma unroll
+          for (int r = 0; r < kG2R; ++r)
+#pragma unroll
+            for (int v = 0; v < kG2Vec; ++v)
+              best[r] = max(best[r], hll_hash(xs.w[v], sc[r]));
         }
       }
       __syncthreads();
     }
 
-    if (Q > 1) {
-      sbest[t] = best;
-      __syncthreads();
-      if (sub == 0)
-        for (int q = 1; q < Q; ++q) {
-          const uint32_t o = sbest[q * S + jl];
-          best = o > best ? o : best;
-        }
-      __syncthreads();
+    if (worker) {
+#pragma unroll
+      for (int r = 0; r < kG2R; ++r)
+        if (j0 + r * T < m && best[r] != 0u)
+          atomicMax(&sbest[ts + r * T], best[r]);
     }
-    if (sub == 0 && has_slot && best != 0u) atomicMax(out + row * m + j, best);
+    __syncthreads();
+    for (int s = t; s < G; s += blockDim.x) {
+      const int j = g * G + s;
+      const uint32_t v = sbest[s];
+      if (j < m && v != 0u) atomicMax(out + row * m + j, v);
+    }
+    __syncthreads();
   }
 }
 
@@ -379,14 +445,17 @@ long long cdiv(long long p, long long q) { return (p + q - 1) / q; }
 
 // out[0] = threads per block at most, out[1] = G2's positions staged per
 // step, out[2] = G1's slots a thread, out[3] = G1's positions staged per
-// step, out[4] = G1's slots a group at most: ops/sketch_grid.py checks them
-// against its own constants.
+// step, out[4] = slots a group at most (G1 and G2), out[5] = G2's slots a
+// thread, out[6] = G2's staged positions a shared load:
+// ops/sketch_grid.py checks them against its own constants.
 extern "C" int sketch_grid_config(int* out) {
   out[0] = kThreads;
-  out[1] = kChunk;
+  out[1] = kG2Chunk;
   out[2] = kR;
   out[3] = kMinChunk;
   out[4] = kMaxGroup;
+  out[5] = kG2R;
+  out[6] = kG2Vec;
   return 0;
 }
 
@@ -431,24 +500,27 @@ extern "C" int launch_grid_min(const void* x, const void* a, const void* b,
 }
 
 // G2: x [n, P] u32, valid [n, P] bytes, salts [m] u32, out [n, m] u32
-// filled with 0 by the caller.  The plan (S slots a group, Q position
-// subsets, span positions a tile) comes from ops/sketch_grid.py::plan.
+// filled with 0 by the caller.  The plan (T threads a slot set holding
+// kG2R slots each, Q position subsets, span positions a tile) comes from
+// ops/sketch_grid.py::plan; one that does not cover (n, P, m) is refused
+// with cudaErrorInvalidValue.
 extern "C" int launch_grid_max(const void* x, const void* valid,
                                const void* salts, void* out, long long n,
-                               long long P, int m, int S, int Q,
+                               long long P, int m, int T, int Q,
                                long long span, void* stream) {
   if (n <= 0 || P <= 0) return 0;
-  if (m < 1 || S < 1 || S > m || Q < 1 || S * Q > kThreads || span < 1)
+  if (m < 1 || T < 1 || Q < 1 || T * Q > kThreads ||
+      T * kG2R > kMaxGroup || span < 1)
     return (int)cudaErrorInvalidValue;
   const long long spans = cdiv(P, span);
-  const long long groups = cdiv(m, S);
+  const long long groups = cdiv(m, (long long)T * kG2R);
   if (spans > 0x7FFFFFFF || groups > 0x7FFFFFFF)
     return (int)cudaErrorInvalidValue;
   const long long tiles = n * spans * groups;
-  const int threads = (S * Q + 31) / 32 * 32;
+  const int threads = (T * Q + 31) / 32 * 32;
   const long long blocks = tiles < 0x7FFFFFFFLL ? tiles : 0x7FFFFFFFLL;
   grid_max_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)x, (const uint8_t*)valid, (const uint32_t*)salts,
-      (uint32_t*)out, P, m, S, Q, span, (int)spans, (int)groups, tiles);
+      (uint32_t*)out, P, m, T, Q, span, (int)spans, (int)groups, tiles);
   return (int)cudaGetLastError();
 }

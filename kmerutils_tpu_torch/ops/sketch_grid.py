@@ -18,6 +18,13 @@ port's own kernels for that reduction; they replace no Pallas kernel.
   valid positions of ``h = mix(x_p ^ salts[j])`` (x * 0x9E3779B1,
   ^ >> 15, * 0x85EBCA77).  Rows without a valid position give 0.
 
+Both kernels take the same tile plan (:func:`plan`), each at its own slots
+a thread: a thread holds several slots in registers and reads each staged
+position once for all of them.  G2 reads :data:`_G2_VEC` consecutive staged
+positions a shared load; the position subsets own whole such groups, and
+copies of a staged position fill a chunk's last group (exact, as a maximum
+is idempotent).
+
 u32 data crosses this boundary as int32 bit patterns: x, a, b int32[n, P],
 valid bool[n, P], slotc / salts int32[m], results int32[n, m].  The device
 of the inputs picks the implementation: a CUDA tensor launches the
@@ -41,11 +48,13 @@ WALKS = 4                # cycle-walk rounds after the first encryption
 # int64 temporaries of one step stay near 64 MB each
 _PLAIN_CHUNK = 1 << 23
 
-# the kernels' constants (csrc/sketch.cu): threads per block at most, G2's
-# positions staged per step, G1's slots a thread, G1's positions staged per
-# step, G1's slots a group at most
-_THREADS, _CHUNK = 256, 1024
-G1_SLOTS_PER_THREAD, _G1_CHUNK, _MAX_GROUP = 8, 1024, 2048
+# the kernels' constants (csrc/sketch.cu): threads per block at most and
+# slots a group at most (both kernels); G1's slots a thread and positions
+# staged per step; G2's slots a thread, staged positions a shared load and
+# positions staged per step (sweep_grid.py --kernel grid_max)
+_THREADS, _MAX_GROUP = 256, 2048
+G1_SLOTS_PER_THREAD, _G1_CHUNK = 8, 1024
+G2_SLOTS_PER_THREAD, _G2_VEC, _G2_CHUNK = 4, 4, 2048
 _WANT_TILES = 32         # tiles per SM wanted before a row is split
 _MIN_SPAN = 512          # fewest positions of a split row per tile
 
@@ -103,7 +112,8 @@ class Plan:
     ``per_thread`` slots a thread: thread t of a block (``subsets`` slot
     sets, rounded up to a warp) holds slots ``t % T + r * T``, r <
     per_thread (T = :attr:`threads_per_set`), and position subset t // T.
-    G2 holds one slot a thread."""
+    G1 holds :data:`G1_SLOTS_PER_THREAD` slots a thread, G2
+    :data:`G2_SLOTS_PER_THREAD`."""
     slots: int
     per_thread: int
     subsets: int
@@ -121,8 +131,8 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def plan(n: int, P: int, m: int, sms: int = 132,
-         per_thread: int = 1) -> Plan:
+def plan(n: int, P: int, m: int, sms: int = 132, *,
+         per_thread: int) -> Plan:
     """The tile plan: groups of up to min(256 x per_thread, 2048) slots
     held by ceil(group / per_thread) threads, as many position subsets as
     fill 256 threads, and a row's positions split over spans of at least
@@ -146,9 +156,9 @@ _config: dict = {}       # device index -> SM count (constants checked)
 
 def library_config(lib) -> tuple:
     """csrc/sketch.cu's constants in a built library (sketch_grid_config):
-    threads, G2's chunk, G1's slots a thread, G1's chunk, G1's largest
-    group."""
-    cfg = (ctypes.c_int * 5)()
+    threads, G2's chunk, G1's slots a thread, G1's chunk, the largest
+    group, G2's slots a thread, G2's positions a shared load."""
+    cfg = (ctypes.c_int * 7)()
     lib.sketch_grid_config(cfg)
     return tuple(cfg)
 
@@ -159,14 +169,15 @@ def launch_plan(dev: torch.device, n: int, P: int, m: int,
     be this module's."""
     from .. import _build
     if dev.index not in _config:
-        want = (_THREADS, _CHUNK, G1_SLOTS_PER_THREAD, _G1_CHUNK, _MAX_GROUP)
+        want = (_THREADS, _G2_CHUNK, G1_SLOTS_PER_THREAD, _G1_CHUNK,
+                _MAX_GROUP, G2_SLOTS_PER_THREAD, _G2_VEC)
         got = library_config(_build.load())
         if got != want:
             raise RuntimeError(f"csrc/sketch.cu's constants {got} != {want} "
                                f"here")
         _config[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    return plan(n, P, m, _config[dev.index], per_thread)
+    return plan(n, P, m, _config[dev.index], per_thread=per_thread)
 
 
 def grid_min(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -203,10 +214,10 @@ def grid_max(x: torch.Tensor, valid: torch.Tensor,
     n, P = x.shape
     m = salts.shape[0]
     out = torch.zeros((n, m), dtype=torch.int32, device=dev)
-    pl = launch_plan(dev, n, P, m)
+    pl = launch_plan(dev, n, P, m, G2_SLOTS_PER_THREAD)
     _build.launch(_build.load().launch_grid_max, *(t.data_ptr() for t in (
-        x, valid, salts, out)), n, P, m, pl.slots, pl.subsets, pl.span,
-        device=dev)
+        x, valid, salts, out)), n, P, m, pl.threads_per_set, pl.subsets,
+        pl.span, device=dev)
     launches_max += 1
     return out
 

@@ -1,14 +1,16 @@
 """Device-time breakdown of ``Sketcher.sketch_batch`` on one CUDA card.
 
-    python -m kmerutils_tpu_torch.profile_sketch [--iters 10] [--out FILE]
+    python -m kmerutils_tpu_torch.profile_sketch [--iters 10] [--algo HLL]
+        [--out FILE]
 
-At the bench shape (1024 random reads x 6000 bases, m=200), for k=8 (K1)
-and k=21 (K2), in one process on one card:
+At the bench shape (1024 random reads x 6000 bases, m=200), for k=8 and
+k=21 of the family ``--algo`` names (PROB3A by default: K1 at k=8, K2 at
+k=21; HLL runs G2), in one process on one card:
 
 1. times a loop of ``iters`` calls with CUDA events (no profiler);
 2. runs the same loop again under ``torch.profiler`` with CUDA events
    around it, sums the device time of every kernel by family (tournament,
-   sort, scan, elementwise, other) and takes the loop's idle share as
+   grid, sort, scan, elementwise, other) and takes the loop's idle share as
    1 - kernel time / event time of that same loop.
 
 Kernels of one stream do not overlap, so the kernel sum is the busy time.
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 FAMILIES = (("tournament", ("tournament",)),
+            ("grid", ("grid_min", "grid_max")),
             ("sort", ("sort", "radix")),
             ("scan", ("scan", "cum")),
             ("elementwise", ("elementwise", "vectorized", "unrolled")))
@@ -109,6 +112,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="profile_sketch")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--algo", default="PROB3A")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -116,7 +120,7 @@ def main(argv=None) -> int:
         return 1
     from .base.sequence import pack_codes
     from .sketch.jaccard import Sketcher
-    from .sketch.params import SeqSketcherParams
+    from .sketch.params import SeqSketcherParams, SketchAlgo
 
     n, L, m = 1024, 6000, 200
     card = card_line()
@@ -125,8 +129,10 @@ def main(argv=None) -> int:
     batch = pack_codes(codes, np.full(n, L, np.int32), device="cuda")
     lines = []
     for k in (8, 21):
-        sk = Sketcher(SeqSketcherParams(kmer_size=k, sketch_size=m))
-        r = {"profile": f"sketch_batch_k{k}", "reads": n, "length": L,
+        sk = Sketcher(SeqSketcherParams(kmer_size=k, sketch_size=m,
+                                        algo=SketchAlgo(args.algo)))
+        r = {"profile": f"sketch_batch_k{k}", "algo": args.algo,
+             "reads": n, "length": L,
              "m": m, "iters": args.iters,
              **profile(lambda: sk.sketch_batch(batch), args.iters),
              "card": card}

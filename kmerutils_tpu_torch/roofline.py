@@ -22,7 +22,9 @@ A kernel's bound is the larger of two times for the same work:
   inner loops in their SASS, to say how far the code is from that count,
   and splits them by the pipe they issue to (:func:`pipe_of`): the bound
   takes 128 lanes an SM, but the ALU and FMA pipes have 64 each, so the
-  busier of the two sets a kernel's floor.
+  busier of the two sets a kernel's floor (:func:`alu_floor_ms`: G2's
+  function alone needs :data:`G2_ALU_OPS_PER_PAIR` ALU instructions a
+  pair).
 
 Used by chip_smoke.py; nothing here runs at import time, and nothing here
 is on the port's data path.
@@ -37,6 +39,7 @@ import subprocess
 
 HBM_BYTES_PER_S = 3.35e12
 LANES_PER_SM = 128          # 4 schedulers x 32 lanes issue per clock
+ALU_LANES_PER_SM = 64       # the ALU pipe: 4 schedulers x 16 lanes
 DRAW_MARKER = "0x9e3779b1"  # the first multiply of mix32: one per draw
 # one multiply per (position, slot) pair of the grid kernels: G1's second
 # hash multiply, G2's first
@@ -51,6 +54,9 @@ PAIR_MARKERS = {"grid_min": 0xC2B2AE3D, "grid_max": 0x9E3779B1}
 G2_OPS_PER_PAIR = 6
 G1_OPS_PER_PAIR = 10
 G1_OPS_PER_ROUND = 5
+# of G2's 6, those that issue on the ALU pipe: ^ salt, >> 15, ^, max (the
+# two multiplies issue on the FMA pipe)
+G2_ALU_OPS_PER_PAIR = 4
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                    r"([A-Z][A-Z0-9_.]*)([^;]*);")
@@ -69,6 +75,18 @@ def sm_clock_hz() -> float:
 
 def issue_ms(instructions: float, sms: int, clock_hz: float) -> float:
     return instructions / (sms * LANES_PER_SM * clock_hz) * 1e3
+
+
+def alu_floor_ms(pairs: int, sms: int = 132,
+                 clock_hz: float = 1.98e9) -> float:
+    """The time the ALU pipe (64 lanes an SM) takes for the ALU
+    instructions of ``pairs`` (position, slot) pairs of G2's function as
+    stated, each step one instruction (4 a pair): above :func:`bound`'s
+    operation time, which counts all six operations at 128 lanes.  A kernel
+    that folds two pairs' maxima into one three-input VIMNMX3 (as nvcc does
+    for csrc/sketch.cu) needs 3.5 a pair, so this is not a hard floor."""
+    return pairs * G2_ALU_OPS_PER_PAIR / (sms * ALU_LANES_PER_SM
+                                          * clock_hz) * 1e3
 
 
 def bound(bytes_moved: float, instructions: float | None = None,
@@ -147,9 +165,9 @@ def _is_draw(op: str, rest: str, marker) -> bool:
 # min/max and selects to the ALU pipe, each 64 lanes an SM; shared and
 # global memory to the LSU; the rest (branches, votes, barriers, moves of
 # uniform registers) counted as "other"
-_ALU_OPS = ("LOP3", "SHF", "IADD3", "ISETP", "IMNMX", "VIMNMX", "SEL", "LEA",
-            "PLOP3", "P2R", "R2P", "FLO", "POPC", "BREV", "PRMT", "IABS",
-            "MOV", "SGXT", "BMSK", "LOP")
+_ALU_OPS = ("LOP3", "SHF", "IADD3", "ISETP", "IMNMX", "VIMNMX", "VIMNMX3",
+            "SEL", "LEA", "PLOP3", "P2R", "R2P", "FLO", "POPC", "BREV",
+            "PRMT", "IABS", "MOV", "SGXT", "BMSK", "LOP")
 _MEM_OPS = ("LDS", "STS", "ATOMS", "LDG", "STG", "LD", "ST", "ATOM", "RED",
             "LDC", "LDSM")
 

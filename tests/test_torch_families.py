@@ -401,13 +401,20 @@ def test_plain_grid_reductions_match_numpy(m):
 
 
 def test_grid_plan_covers_rows():
-    pl = sketch_grid.plan(1, 6_100_000, 200)
+    R2 = sketch_grid.G2_SLOTS_PER_THREAD
+    pl = sketch_grid.plan(1, 6_100_000, 200, per_thread=R2)
     assert pl.spans * pl.span >= 6_100_000 > (pl.spans - 1) * pl.span
-    assert pl.spans > 132 and pl.slots * pl.subsets <= 256
-    pl = sketch_grid.plan(1024, 5993, 4096)
-    assert (pl.slots, pl.groups, pl.spans) == (256, 16, 1)
-    pl = sketch_grid.plan(3, 100, 13)
-    assert (pl.slots, pl.subsets, pl.spans) == (13, 19, 1)
+    assert pl.spans > 132 and pl.threads_per_set * pl.subsets <= 256
+    # G2: 4 slots a thread, so 4 groups of 1024 slots at m = 4096 (not 16
+    # of 256), whose 4096 tiles split each row in 2 spans; at m = 200, 250
+    # of 256 threads work (not 200 of 224)
+    assert R2 == 4
+    pl = sketch_grid.plan(1024, 5993, 4096, per_thread=R2)
+    assert (pl.slots, pl.groups, pl.spans) == (1024, 4, 2)
+    pl = sketch_grid.plan(3, 100, 13, per_thread=R2)
+    assert (pl.slots, pl.subsets, pl.spans) == (16, 64, 1)
+    pl = sketch_grid.plan(1024, 5993, 200, per_thread=R2)
+    assert (pl.threads_per_set, pl.subsets, pl.groups) == (50, 5, 1)
     # G1: 8 slots a thread
     pl = sketch_grid.plan(1024, 5993, 200, per_thread=8)
     assert (pl.threads_per_set, pl.subsets, pl.groups) == (25, 10, 1)
@@ -416,12 +423,25 @@ def test_grid_plan_covers_rows():
         2048, 256, 1, 2)
 
 
-def plan_coverage(pl, n: int, P: int, m: int, chunk: int) -> np.ndarray:
+def staged_chunks(p0: int, p1: int, chunk: int, vec: int):
+    """The kernels' staging of positions [p0, p1) when all are valid:
+    (first position, staged positions) of each chunk, where the chunk's
+    last group of ``vec`` staged positions is filled with copies of its
+    first position (G2; G1 reads one position a load, vec = 1)."""
+    for c0 in range(p0, p1, chunk):
+        cn = min(chunk, p1 - c0)
+        staged = np.arange(cn + (-cn) % vec)
+        yield c0, np.where(staged < cn, staged, 0)
+
+
+def plan_coverage(pl, n: int, P: int, m: int, chunk: int,
+                  vec: int = 1) -> np.ndarray:
     """How often the kernels' index map visits each (row, position, slot)
     under plan pl: tile (row, span, group); thread t of the block holds
     slots g * slots + t % T + r * T (r < per_thread, T threads a slot set)
-    and, within each staged chunk of the span, the compacted positions i
-    with i % subsets == t // T (all positions valid here)."""
+    and, within each staged chunk of the span, the groups of ``vec``
+    staged positions whose index is t // T modulo the subsets (all
+    positions valid here)."""
     T, Q, R = pl.threads_per_set, pl.subsets, pl.per_thread
     threads = -(-T * Q // 32) * 32
     t = np.arange(threads)
@@ -430,36 +450,113 @@ def plan_coverage(pl, n: int, P: int, m: int, chunk: int) -> np.ndarray:
     for row in range(n):
         for sp in range(pl.spans):
             p0, p1 = sp * pl.span, min(P, (sp + 1) * pl.span)
-            off = np.arange(p1 - p0)
-            p_sub = (off % chunk) % Q          # the subset of each position
             for g in range(pl.groups):
                 cover = np.zeros((Q, m), np.int16)
                 for r in range(R):
                     j = g * pl.slots + ts + r * T
                     ok = (sub < Q) & (j < m)
                     np.add.at(cover, (sub[ok], j[ok]), 1)
-                counts[row, p0:p1] += cover[p_sub]
+                for c0, src in staged_chunks(p0, p1, chunk, vec):
+                    p_sub = (np.arange(src.size) // vec) % Q
+                    np.add.at(counts[row], c0 + src, cover[p_sub])
     return counts
 
 
+KERNELS = {"G2": (sketch_grid.G2_SLOTS_PER_THREAD, sketch_grid._G2_CHUNK,
+                  sketch_grid._G2_VEC),
+           "G1": (sketch_grid.G1_SLOTS_PER_THREAD, sketch_grid._G1_CHUNK, 1)}
+
+
 @pytest.mark.parametrize("split", [False, True], ids=["whole", "split"])
-@pytest.mark.parametrize("per_thread", [1, 8], ids=["G2", "G1"])
+@pytest.mark.parametrize("kernel", ["G2", "G1"])
 @pytest.mark.parametrize("m", [1, 13, 129, 199, 200, 201, 256, 257, 4096])
-def test_grid_plan_visits_every_pair_once(m, per_thread, split):
+def test_grid_plan_visits_every_pair_once(m, kernel, split):
     """Every (row, position, slot) is visited exactly once by the plan's
-    index map, whole rows (positions over more than one staging chunk) and
-    a row split over spans, with at most 256 threads a block and at most
-    2048 slots a group."""
-    n, P, sms = (1, 2600, 132) if split else (2, 1500, 0)
-    pl = sketch_grid.plan(n, P, m, sms, per_thread)
+    index map at the kernel's slots a thread, chunk and positions a shared
+    load, whole rows (positions over more than one staging chunk) and a
+    row split over spans, with at most 256 threads a block and at most
+    2048 slots a group; G2's copies that fill a chunk's last shared load
+    visit the chunk's first position again, and nothing else."""
+    per_thread, chunk, vec = KERNELS[kernel]
+    n, P, sms = (1, 2600, 132) if split else (2, 2600, 0)
+    pl = sketch_grid.plan(n, P, m, sms, per_thread=per_thread)
     assert (pl.spans > 1) == split
     assert pl.threads_per_set * pl.subsets <= 256
     assert pl.slots <= 2048 and pl.slots == pl.threads_per_set * per_thread
-    # at m = 200 and 8 slots a thread nearly every thread works
-    if (m, per_thread) == (200, 8):
+    # at m = 200 and 4 or 8 slots a thread nearly every thread works
+    if m == 200 and per_thread in (4, 8):
         assert pl.threads_per_set * pl.subsets == 250
-    chunk = sketch_grid._G1_CHUNK if per_thread > 1 else sketch_grid._CHUNK
-    assert (plan_coverage(pl, n, P, m, chunk) == 1).all()
+    want = np.ones((n, P, m), np.int16)
+    for sp in range(pl.spans):
+        p0, p1 = sp * pl.span, min(P, (sp + 1) * pl.span)
+        for c0, src in staged_chunks(p0, p1, chunk, vec):
+            want[:, c0] += src.size - min(chunk, p1 - c0)
+    assert (plan_coverage(pl, n, P, m, chunk, vec) == want).all()
+    assert split or P > chunk
+
+
+def numpy_grid_max(x, valid, salts, pl, chunk: int, vec: int, rng):
+    """G2 as the kernel computes it, in numpy: per tile and chunk the valid
+    positions staged in any order (the warps' compaction has none), the
+    last group of ``vec`` staged positions filled with copies of staged
+    position 0, subset q reading the groups q, q + Q, ...; each thread's
+    per_thread register maxima, then the subsets' maxima met, then the
+    tiles' (all u32)."""
+    n, P = x.shape
+    m = salts.size
+    T, Q, R = pl.threads_per_set, pl.subsets, pl.per_thread
+    out = np.zeros((n, m), np.uint32)
+    for row in range(n):
+        for sp in range(pl.spans):
+            p0, p1 = sp * pl.span, min(P, (sp + 1) * pl.span)
+            for c0 in range(p0, p1, chunk):
+                pos = c0 + np.flatnonzero(valid[row, c0:min(p1, c0 + chunk)])
+                if pos.size == 0:
+                    continue
+                sx = x[row, rng.permutation(pos)]
+                sx = np.concatenate([sx, np.repeat(sx[:1], -sx.size % vec)])
+                assert sx.size % vec == 0
+                for g in range(pl.groups):
+                    for q in range(Q):
+                        mine = sx.reshape(-1, vec)[q::Q].ravel()
+                        for ts in range(T):
+                            j = g * pl.slots + ts + np.arange(R) * T
+                            j = j[j < m]
+                            if mine.size and j.size:
+                                best = numpy_hll_hashes(
+                                    mine[None], salts[j])[0].max(axis=0)
+                                out[row, j] = np.maximum(out[row, j], best)
+    return out
+
+
+@pytest.mark.parametrize("vec", [1, 2, 4])
+@pytest.mark.parametrize("m,chunk", [(200, 64), (13, 32), (200, 2048),
+                                     (4096, 64)])
+def test_grid_max_tail_copies_are_exact(m, chunk, vec):
+    """The tail rule of G2: chunks whose count of valid positions is no
+    multiple of vec x subsets (1, 3, 41 or 77 valid positions a row, and
+    90 % of 300), their last shared load filled with copies of a staged
+    position, give grid_max_ref's maxima, at G2's slots a thread."""
+    rng = np.random.default_rng(m + chunk + vec)
+    n, P = 6, 300
+    x = rng.integers(0, 1 << 32, size=(n, P), dtype=np.uint64).astype(
+        np.uint32)
+    valid = np.zeros((n, P), bool)
+    for row, k in enumerate((1, 3, 41, 77, 0)):
+        valid[row, rng.choice(P, size=k, replace=False)] = True
+    valid[5] = rng.random(P) < 0.9
+    pl = sketch_grid.plan(n, P, m,
+                          per_thread=sketch_grid.G2_SLOTS_PER_THREAD)
+    assert vec * pl.subsets == 1 or any(
+        int(valid[r].sum()) % (vec * pl.subsets) for r in range(n))
+    salts = tsm.slot_consts(m, 0, "cpu")
+    want = to_numpy(sketch_grid.grid_max_ref(
+        torch.from_numpy(x.view(np.int32).copy()), torch.from_numpy(valid),
+        salts))
+    got = numpy_grid_max(x, valid, salts.numpy().view(np.uint32), pl, chunk,
+                         vec, rng)
+    assert np.array_equal(got, want)
+    assert (got[4] == 0).all() and (got[:4] != 0).any(axis=1).all()
 
 
 @pytest.mark.parametrize("m", [1, 13, 129, 200])
@@ -492,6 +589,22 @@ def test_grid_work_counts_the_walk_rounds_the_data_needs(m):
     assert clamped > 0 or m != 129
 
 
+def test_g2_alu_floor():
+    """roofline.alu_floor_ms: G2's 4 ALU instructions a pair over 64 lanes
+    an SM at the clock; at the bench shape's ~1.215e9 pairs on 132 SMs at
+    1.98 GHz, 0.2905 ms, above the 0.218 ms bound of all 6 operations over
+    128 lanes, which stays as it was."""
+    from kmerutils_tpu_torch import roofline
+    assert roofline.G2_ALU_OPS_PER_PAIR == 4 and roofline.G2_OPS_PER_PAIR == 6
+    assert roofline.alu_floor_ms(1_000_000, sms=1, clock_hz=1e6) == 62.5
+    pairs = 1_215_000_000
+    floor = roofline.alu_floor_ms(pairs, 132, 1.98e9)
+    assert abs(floor - 0.29055) < 1e-4
+    bound = roofline.bound(0, pairs * roofline.G2_OPS_PER_PAIR, 132, 1.98e9)
+    assert bound[1] == "operations" and abs(bound[0] - 0.21791) < 1e-4
+    assert abs(floor / bound[0] - 4 / 6 * 2) < 1e-12
+
+
 # a loop of SASS as cuobjdump prints it: one G1-like pass of two pairs
 _SASS = """
         /*0100*/                   LDS.128 R4, [R2] ;
@@ -520,7 +633,8 @@ def test_sass_pipes_per_pair():
                                    "fma_wide": 0.5, "other": 0.5}
     assert [roofline.pipe_of(op) for op in (
         "IMAD.WIDE.U32", "IMAD.MOV.U32", "SHF.L.U32", "ATOMS.MIN", "VOTE.ANY",
-        "POPC")] == ["fma_wide", "fma", "alu", "mem", "other", "alu"]
+        "POPC", "VIMNMX3.U32")] == ["fma_wide", "fma", "alu", "mem", "other",
+                                    "alu", "alu"]
 
 
 @pytest.mark.parametrize("names,ok", [
