@@ -161,7 +161,29 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    ``gather_signatures`` of those signatures equal to them;
    ``sharded_bloom_insert`` (2^28 slots, 4 probes) equal to
    ``BloomFilter.insert``; the launch counters of K3, K4, K5 and G2 (each
-   set to 0 just before every path of the phase) must be > 0.
+   set to 0 just before every path of the phase) must be > 0;
+14. the host leftovers on the card and the six families against the
+   published algorithms: ``revcomp_batch`` at the bench batch and a ragged
+   one (empty, one-base and whole-word rows) equal to the CPU's and to
+   numpy's reverse complement, the identity applied twice, timed;
+   ``ReadBatch.codes`` / ``valid_mask`` and ``base_counts`` over phase 5's
+   batches, per-read counts equal to numpy's, their totals to numpy's over
+   the file and their per-percent histogram to ``stats.py``'s; the k-mer
+   value types (``Kmer32bit`` k=14, ``Kmer16b32bit``, ``Kmer64bit`` k=21
+   and 32) pushed base by base over 64 sampled reads equal to
+   ``base/kmer.py``'s k-mers on the card, and their canonical k-mers at
+   4,096 sampled positions; ``KmerCountReload`` of phase 8's ``--count -s
+   16`` and ``--unique -s 21`` dumps (10,000 sampled keys and ranks, absent
+   keys, ranks -1 and n) equal to phase 8's oracles; ``load_all`` of phase
+   5's file onto the card equal to its clean reads in file order; then each
+   of the six families (PROB3A, SUPER, SUPER2, OPTDENS, REVOPTDENS, HLL) at
+   m = 200 in one batched card call over 2,048 pairs of seeded sets with a
+   known exact Jaccard (0.5 and 0.2; weighted sets and
+   ``probjaccard_exact`` for PROB3A; the cardinality of 2,048 sets of 400
+   items for HLL) and the published sequential algorithm
+   (``sketch/golden.py``) on the host over the first 48 pairs (12 sets),
+   both held to tests/test_sketch.py's mean and spread rules; the launch
+   counters of K1, G1 and G2, each set to 0 before its family, must be > 0.
 
 With ``--baseline ROOT`` (the tree of another commit, e.g. unpacked from
 ``git archive`` into a git-ignored directory) the script runs phases 1-2,
@@ -176,10 +198,12 @@ count per pair; event ms, host enqueue ms and device ms) and HLL's whole
 ``sketch_batch`` of the bench batch at k=8 and k=21 (the same three, both
 trees' registers equal); then ``datasketcher -b 512 -k 8`` of each
 package over phase 5's ONT-like file (wall ms, device ms, the
-tournament kernels' device ms).  It prints one JSON line per result and
-the card line, and no ``ok`` line.
+tournament kernels' device ms), and phase 8's ``parsefastq kmer --count -s
+16`` and ``--unique -s 21`` of each over a bacterial file like phase 8's
+(wall s and Mbases/s).  It prints one JSON line per result and the card
+line, and no ``ok`` line.
 
-The temporary files of phases 5-13 live in one directory, removed at the
+The temporary files of phases 5-14 live in one directory, removed at the
 end.  The last three lines are the card's name and power limit, the
 kernels' JSON record (each kernel's launches on its path, exactness, ms,
 plain_ms, bound_ms with bound_by, and library_ms or null) and
@@ -255,7 +279,7 @@ def environment(torch) -> str:
     except ImportError as e:
         print(f"triton not importable ({e})")
     from kmerutils_tpu_torch.io import native
-    print("native FASTQ parser (native/libktpnative.so):",
+    print("native FASTQ parser (build/native/):",
           "available" if native.available() else "unavailable, Python parser")
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1389,7 +1413,9 @@ def check_count_dump(path: str, reads, k: int, what: str):
     return keys, counts
 
 
-def check_unique_dump(path: str, reads, k: int, what: str) -> int:
+def check_unique_dump(path: str, reads, k: int, what: str):
+    """Compare a --unique dump with the numpy oracle; returns the oracle's
+    records (u32 keys, read numbers, positions) in scan order."""
     can, rid, pos = oracle_kmers(reads, k)
     keys, first, counts = np.unique(can, return_index=True,
                                     return_counts=True)
@@ -1409,22 +1435,25 @@ def check_unique_dump(path: str, reads, k: int, what: str) -> int:
           f"{at.size} (of {keys.size} distinct {k}-mers): "
           f"{'equal' if ok else 'DIFFERENT'}", flush=True)
     check(ok, f"{what}: dump != numpy oracle")
-    return int(keys.size)
+    return ((can[at] & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            rid[at].astype(np.uint32), pos[at].astype(np.uint32))
 
 
-def run_parsefastq(argv, cwd: str):
-    """parsefastq.main in ``cwd`` (where it writes its histograms); returns
-    (rc, stdout, stderr, wall s)."""
+def run_parsefastq(argv, cwd: str, main=None):
+    """parsefastq's ``main`` (this tree's by default) in ``cwd`` (where it
+    writes its histograms); returns (rc, stdout, stderr, wall s)."""
     import contextlib
     import io
-    from kmerutils_tpu_torch.cli import parsefastq
+    if main is None:
+        from kmerutils_tpu_torch.cli import parsefastq
+        main = parsefastq.main
     out, err = io.StringIO(), io.StringIO()
     here = os.getcwd()
     os.chdir(cwd)
     try:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = parsefastq.main(argv)
+            rc = main(argv)
         wall = time.perf_counter() - t0
     finally:
         os.chdir(here)
@@ -1466,7 +1495,8 @@ def counting_runs(torch, rng, tmp: str, card: str, dev,
 
     rc, _, err, _ = run_parsefastq(base + ["--unique", "-s", "21"], tmp)
     check(rc == 0 and "WARNING" not in err, "--unique -s 21 failed or dropped")
-    check_unique_dump(fq + ".once_kmer.bin", reads, 21, "--unique -s 21")
+    unique21 = check_unique_dump(fq + ".once_kmer.bin", reads, 21,
+                                 "--unique -s 21")
 
     spill_fq = os.path.join(tmp, "bact2k.fastq")
     with open(fq, "rb") as src, open(spill_fq, "wb") as dst:
@@ -1492,7 +1522,7 @@ def counting_runs(torch, rng, tmp: str, card: str, dev,
                       "mbases": mbases, "distinct_16mers": oracle16[0].size,
                       "mbases_per_s": [mbases / w for w in walls],
                       "card": card}), flush=True)
-    return launches, reads, walls, oracle16
+    return launches, reads, walls, oracle16, unique21
 
 
 # ---------------------------------------------------------------------------
@@ -3106,6 +3136,451 @@ def sharded_path(torch, rng, card: str, fq: str, reads, walls8, oracle16,
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the host leftovers on the card, and the six families against
+# the published algorithms (sketch/golden.py)
+# ---------------------------------------------------------------------------
+
+def revcomp_checks(torch, rng, card: str, dev) -> dict:
+    """revcomp_batch on the card at the bench batch and a ragged batch:
+    equal to the CPU's and to numpy's reverse complement of the codes,
+    and the identity when applied twice; timed by CUDA events."""
+    from kmerutils_tpu_torch.base.sequence import (pack_codes, pack_words,
+                                                   revcomp_batch)
+    out = {}
+    for what, (n, L) in (("bench", (1024, 6000)), ("ragged", (512, 3000))):
+        codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
+        lengths = np.full(n, L, np.int32)
+        if what == "ragged":        # empty, one base, whole words, full
+            lengths = rng.integers(0, L + 1, size=n).astype(np.int32)
+            lengths[:4] = (0, 1, 16 * 64, L)
+        codes[np.arange(L)[None, :] >= lengths[:, None]] = 0
+        batch = pack_codes(codes, lengths, device=dev)
+        rc = revcomp_batch(batch)
+        want = np.zeros_like(codes)
+        for r, ln in enumerate(lengths.tolist()):
+            want[r, :ln] = 3 - codes[r, :ln][::-1]
+        want_words, _ = pack_words(want, lengths)
+        cpu = revcomp_batch(batch.to("cpu"))
+        back = revcomp_batch(rc)
+        ok = (np.array_equal(rc.words.cpu().numpy().view(np.uint32),
+                             want_words)
+              and torch.equal(rc.words.cpu(), cpu.words)
+              and torch.equal(rc.lengths, batch.lengths)
+              and torch.equal(back.words, batch.words))
+        ms = (cuda_ms(torch, lambda: revcomp_batch(batch), 10)
+              if torch.device(dev).type == "cuda" else None)
+        print(f"revcomp_batch {what} {n} x {L}: card = CPU = numpy, twice = "
+              f"input: {ok}; {ms} ms", flush=True)
+        check(ok, f"revcomp_batch at the {what} batch")
+        out[what] = {"rows": n, "bases": L, "ms": ms}
+    print(json.dumps({"timing": "revcomp_batch_ms", **{
+        k: v["ms"] for k, v in out.items()}, "card": card}), flush=True)
+    return out
+
+
+def base_count_checks(torch, fq: str, clean, dev) -> dict:
+    """ReadBatch.codes / valid_mask and base_counts on the card over phase
+    5's batches: per-read counts equal numpy's, their totals numpy's over
+    the file, and their per-percent histogram stats.py's
+    (ReadBaseDistribution over the same batches on the card)."""
+    from kmerutils_tpu_torch import stats
+    from kmerutils_tpu_torch.base.alphabet import base_counts
+    from kmerutils_tpu_torch.io import fastx
+    counts, rows = [], []
+    dist = stats.ReadBaseDistribution.new()
+    for host, idx in fastx.read_batches(fq, batch_reads=10000):
+        b = host.to(dev)
+        counts.append(base_counts(b.codes(), b.valid_mask()).cpu().numpy())
+        rows.append(np.asarray(idx))
+        dist.record_batch(b)
+    dist.finish()
+    counts = np.concatenate(counts).astype(np.int64)
+    rows = np.concatenate(rows)
+    want = np.stack([np.bincount(clean[r], minlength=4) for r in rows])
+    totals = counts.sum(axis=0)
+    lengths = np.array([clean[r].size for r in rows], np.int64)
+    pct = np.clip(np.rint(100.0 * counts / lengths[:, None]), 0, 100)
+    mat = np.zeros((101, 4))
+    np.add.at(mat, (pct.astype(np.int64), np.arange(4)[None, :]), 1.0)
+    ok = (np.array_equal(counts, want)
+          and np.array_equal(totals,
+                             np.bincount(np.concatenate(clean), minlength=4))
+          and np.array_equal(mat, dist.acgt_distribution)
+          and dist.n_reads == len(clean))
+    print(f"base_counts over {rows.size} reads: A/C/G/T totals "
+          f"{totals.tolist()}; = numpy per read and over the file, "
+          f"= stats.py's histogram: {ok}", flush=True)
+    check(ok, "base_counts on the card != numpy / stats.py")
+    return {"totals": totals.tolist(), "reads": int(rows.size)}
+
+
+def kmertype_checks(torch, rng, clean, dev, n_reads: int = 64,
+                    n_canonical: int = 4096) -> dict:
+    """Kmer32bit (k=14), Kmer16b32bit and Kmer64bit (k=21, 32) pushed base
+    by base over 64 sampled reads: every k-mer equal to base/kmer.py's on
+    the card, and the canonical k-mer (min of the value and its reverse
+    complement's) at ``n_canonical`` sampled positions equal to the
+    card's."""
+    from kmerutils_tpu_torch.base import kmer
+    from kmerutils_tpu_torch.base.kmertypes import (Kmer16b32bit, Kmer32bit,
+                                                    Kmer64bit)
+    from kmerutils_tpu_torch.base.sequence import pack_codes
+    pick = np.sort(rng.choice(len(clean), size=n_reads, replace=False))
+    reads = [clean[i] for i in pick]
+    L = max(r.size for r in reads)
+    codes = np.zeros((n_reads, L), np.uint8)
+    for i, r in enumerate(reads):
+        codes[i, : r.size] = r
+    batch = pack_codes(codes, np.array([r.size for r in reads], np.int32),
+                       device=dev)
+    out = {}
+    for cls, k in ((Kmer32bit, 14), (Kmer16b32bit, 16), (Kmer64bit, 21),
+                   (Kmer64bit, 32)):
+        t0 = time.perf_counter()
+        if k <= 16:
+            km, _ = kmer.kmers_u32(batch, k)
+            can, _ = kmer.canonical_u32(km, k)
+        else:
+            km, _ = kmer.kmers_u64(batch, k)
+            can, _ = kmer.canonical_u64(km, k)
+        km = km.cpu().numpy().view(np.uint64)
+        can = can.cpu().numpy().view(np.uint64)
+        n_pos = sum(r.size - k + 1 for r in reads)
+        sample = set(rng.choice(n_pos, size=n_canonical,
+                                replace=False).tolist())
+        bad = bad_can = seen = 0
+        for i, r in enumerate(reads):
+            x = cls(0) if cls is Kmer16b32bit else cls(k)
+            vals = []
+            for p, c in enumerate(r.tolist()):
+                x = x.push(c)
+                if p < k - 1:
+                    continue
+                vals.append(x.get_compressed_value())
+                if seen in sample:
+                    rc = x.reverse_complement().get_compressed_value()
+                    bad_can += min(vals[-1], rc) != int(can[i, p - k + 1])
+                seen += 1
+            bad += int((np.array(vals, np.uint64)
+                        != km[i, : len(vals)]).sum())
+        s = time.perf_counter() - t0
+        print(f"{cls.__name__} k={k}: {n_pos} k-mers pushed base by base vs "
+              f"base/kmer.py on the card: {bad} differ; {n_canonical} "
+              f"canonical: {bad_can} differ ({s:.1f} s)", flush=True)
+        check(bad == 0 and bad_can == 0,
+              f"{cls.__name__} k={k} != the card's k-mers")
+        out[f"{cls.__name__}_k{k}"] = {"kmers": n_pos, "seconds": s}
+    return out
+
+
+def present(sorted_keys: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Whether each value of ``v`` is in the sorted array."""
+    i = np.minimum(np.searchsorted(sorted_keys, v), sorted_keys.size - 1)
+    return sorted_keys[i] == v
+
+
+def reload_checks(rng, fq: str, oracle16, unique21,
+                  n_sample: int = 10_000) -> dict:
+    """KmerCountReload of phase 8's --count -s 16 and --unique -s 21 dumps:
+    the counts of sampled 16-mers (count-1 ones absent) and the
+    coordinates of sampled ranks and keys equal phase 8's oracles."""
+    from kmerutils_tpu_torch.io.formats import KmerCountReload
+    t0 = time.perf_counter()
+    multi = KmerCountReload.load_multiple_kmers_from_file(
+        fq + ".multi_kmer.bin")
+    t_multi = time.perf_counter() - t0
+    keys, counts = oracle16            # sorted, every distinct 16-mer
+    pick = rng.choice(keys.size, size=n_sample, replace=False)
+    want = [None if c < 2 else min(int(c), 255) for c in counts[pick]]
+    got = [multi.get_kmer_count(int(v)) for v in keys[pick]]
+    cand = rng.integers(0, 1 << 32, size=4 * n_sample, dtype=np.uint64)
+    absent16 = cand[~present(keys, cand)][:100]
+    ok_multi = (multi.kmer_size == 16 and got == want
+                and len(multi.counts) == int((counts >= 2).sum())
+                and all(multi.get_kmer_count(int(v)) is None
+                        for v in absent16))
+    t_multi_checks = time.perf_counter() - t0 - t_multi
+
+    t0 = time.perf_counter()
+    uniq = KmerCountReload.load_unique_kmers_from_file(fq + ".once_kmer.bin")
+    t_uniq = time.perf_counter() - t0
+    ukeys, rid, pos = unique21
+    n = ukeys.size
+    ranks = rng.choice(n, size=n_sample, replace=False)
+    ok_rank = all(uniq.get_coord_from_rank(int(r)) == (int(rid[r]),
+                                                       int(pos[r]))
+                  for r in ranks)
+    ok_rank &= (uniq.get_coord_from_rank(-1) is None
+                and uniq.get_coord_from_rank(n) is None)
+    # the dump keeps a key's low 32 bits, and the reload's key map keeps
+    # the last rank of a repeated low half: in a stable sort, the last of
+    # the equal keys
+    order = np.argsort(ukeys, kind="stable")
+    srt = ukeys[order]
+    sk = ukeys[ranks]
+    hi = np.searchsorted(srt, sk, "right")
+    repeated = hi - np.searchsorted(srt, sk, "left") > 1
+    last = order[hi - 1]
+    ok_key = all(uniq.get_unique_kmer_coord(int(v))
+                 == (int(rid[i]), int(pos[i])) for v, i in zip(sk, last))
+    cand = rng.integers(0, 1 << 32, size=4 * n_sample,
+                        dtype=np.uint64).astype(np.uint32)
+    absent21 = cand[~present(srt, cand)][:100]
+    ok_key &= all(uniq.get_unique_kmer_coord(int(v)) is None
+                  for v in absent21)
+    ok_uniq = (uniq.kmer_size == 21 and len(uniq.coords) == n
+               and uniq.get_kmer_count(int(sk[0])) is None
+               and ok_rank and ok_key)
+    t_uniq_checks = time.perf_counter() - t0 - t_uniq
+    t0 = time.perf_counter()
+    del multi, uniq
+    t_free = time.perf_counter() - t0
+    print(f"KmerCountReload: --count -s 16 ({len(want)} sampled of "
+          f"{int((counts >= 2).sum())} records, {t_multi:.1f} s to load, "
+          f"{t_multi_checks:.1f} s to check) sampled 16-mers + 100 absent = "
+          f"oracle: {ok_multi}; --unique -s 21 ({n} records, {t_uniq:.1f} s "
+          f"to load, {t_uniq_checks:.1f} s to check) {n_sample} sampled ranks"
+          f" and keys ({int(repeated.sum())} with a repeated low half), ranks"
+          f" -1 and n, 100 absent keys = oracle: {ok_uniq}; {t_free:.1f} s "
+          f"to free both", flush=True)
+    check(ok_multi, "KmerCountReload of the --count dump != oracle")
+    check(ok_uniq, "KmerCountReload of the --unique dump != oracle")
+    return {"count_records": int((counts >= 2).sum()),
+            "count_load_s": t_multi, "unique_records": n,
+            "unique_load_s": t_uniq, "check_s": t_multi_checks
+            + t_uniq_checks, "free_s": t_free}
+
+
+def load_all_check(torch, fq: str, clean, dev) -> dict:
+    """io/fastx.load_all of phase 5's file onto the card: the clean reads
+    in file order."""
+    from kmerutils_tpu_torch.base.sequence import pack_words
+    from kmerutils_tpu_torch.io import fastx
+    t0 = time.perf_counter()
+    b = fastx.load_all(fq, device=dev)
+    s = time.perf_counter() - t0
+    L = max(c.size for c in clean)
+    codes = np.zeros((len(clean), L), np.uint8)
+    for i, c in enumerate(clean):
+        codes[i, : c.size] = c
+    words, lengths = pack_words(codes, [c.size for c in clean])
+    ok = (b.device.type == torch.device(dev).type
+          and np.array_equal(b.words.cpu().numpy().view(np.uint32), words)
+          and np.array_equal(b.lengths.cpu().numpy(), lengths))
+    print(f"load_all: {b.n_reads} x {b.words.shape[1]} words on {b.device} "
+          f"= the clean reads in file order: {ok} ({s:.1f} s)", flush=True)
+    check(ok, "load_all != the clean reads in file order")
+    return {"reads": b.n_reads, "seconds": s}
+
+
+GOLDEN_M = 200           # the bench width
+GOLDEN_SET = 300         # items a set: more than m, few buckets stay empty
+GOLDEN_SHARED = (200, 100)   # shared items: exact J = 0.5 and 0.2
+GOLDEN_HLL_SET = 400
+
+
+def distinct_rows(rng, rows: int, n: int, wide: bool) -> np.ndarray:
+    """``rows`` rows of ``n`` distinct random items (u64 below 2^62, or u32
+    below 2^31 so K1 runs)."""
+    hi = 1 << (62 if wide else 31)
+    return np.stack([rng.choice(hi, size=n, replace=False) + 1
+                     for _ in range(rows)]).astype(np.uint64)
+
+
+def estimate_rule(est, exact: float, m: int, slack: float, sd_lo=None,
+                  sd_hi: float = 1.7) -> dict:
+    """tests/test_sketch.py's rule: the mean within 3.5 sd / sqrt(trials)
+    + slack of the exact J, the spread below sd_hi (and above sd_lo) times
+    the binomial sd."""
+    est = np.asarray(est, np.float64)
+    ref_sd = np.sqrt(exact * (1 - exact) / m)
+    tol = 3.5 * np.sqrt(exact * (1 - exact) / m / est.size) + slack
+    mean, sd = float(est.mean()), float(est.std())
+    ok = abs(mean - exact) < tol and sd < sd_hi * ref_sd
+    if sd_lo is not None:
+        ok &= sd > sd_lo * ref_sd
+    return {"mean": mean, "sd": sd, "tol": tol, "ref_sd": ref_sd,
+            "n": int(est.size), "ok": bool(ok)}
+
+
+def pair_estimates(torch, sig) -> np.ndarray:
+    """Fraction of equal slots of rows 2i and 2i + 1."""
+    return (sig[0::2] == sig[1::2]).to(torch.float64).mean(dim=1) \
+        .cpu().numpy()
+
+
+def golden_families(torch, rng, card: str, dev, n_pairs: int = 2048,
+                    n_golden: int = 48, n_hll: int = 2048,
+                    n_hll_golden: int = 12, seed: int = 3) -> dict:
+    """Each of the six families in one batched call on the card over many
+    pairs of seeded sets with a known exact value, and the published
+    sequential algorithm (sketch/golden.py) on the host over the first
+    pairs: both held to tests/test_sketch.py's mean and spread rules."""
+    from kmerutils_tpu_torch.ops import sketch_grid as G
+    from kmerutils_tpu_torch.ops import tournament as T
+    from kmerutils_tpu_torch.sketch import (densminhash, golden,
+                                            probminhash, setsketch,
+                                            superminhash)
+    m, n = GOLDEN_M, GOLDEN_SET
+    out, launches = {}, {}
+
+    def record(family, exact, card_est, gold_est, gold_s, **rule):
+        r = {"exact": exact, "card": estimate_rule(card_est, exact, m,
+                                                   **rule),
+             "golden": estimate_rule(gold_est, exact, m, **rule),
+             "golden_host_s": gold_s}
+        print(f"{family} J={exact:.4f}: card mean {r['card']['mean']:.4f} "
+              f"sd {r['card']['sd']:.4f} ({r['card']['n']} pairs, tol "
+              f"{r['card']['tol']:.4f}); golden mean "
+              f"{r['golden']['mean']:.4f} sd {r['golden']['sd']:.4f} "
+              f"({r['golden']['n']} pairs, tol {r['golden']['tol']:.4f}, "
+              f"{gold_s:.2f} s on the host); binomial sd "
+              f"{r['card']['ref_sd']:.4f}", flush=True)
+        check(r["card"]["ok"], f"{family} on the card fails the rule")
+        check(r["golden"]["ok"], f"{family}'s golden fails the rule")
+        out.setdefault(family, []).append(r)
+
+    # PROB3A: weighted sets, b a subset of a with weights of its own
+    for shared in GOLDEN_SHARED:
+        wa = rng.integers(1, 6, size=n)
+        wb = rng.integers(1, 6, size=shared)
+        exact = golden.probjaccard_exact(
+            {i: float(w) for i, w in enumerate(wa)},
+            {i: float(w) for i, w in enumerate(wb)})
+        pool = distinct_rows(rng, n_pairs, n, wide=False)
+        items = np.zeros((2 * n_pairs, n), np.uint32)
+        weights = np.zeros((2 * n_pairs, n), np.int32)
+        items[0::2], weights[0::2] = pool, wa
+        items[1::2, :shared], weights[1::2, :shared] = pool[:, :shared], wb
+        ti = torch.from_numpy(items.view(np.int32)).to(dev)
+        tw = torch.from_numpy(weights).to(dev)
+        T.launches_u32 = 0
+        sig, _ = probminhash.probminhash_signatures(ti, tw, m, seed)
+        launches.setdefault("K1", []).append(T.launches_u32)
+        t0 = time.perf_counter()
+        gold = [float((golden.probminhash3_golden(p, wa, m, seed)
+                       == golden.probminhash3_golden(p[:shared], wb, m,
+                                                     seed)).mean())
+                for p in pool[:n_golden]]
+        record("PROB3A", exact, pair_estimates(torch, sig), gold,
+               time.perf_counter() - t0, slack=0.01, sd_lo=0.5, sd_hi=1.6)
+
+    # the unweighted families: a = pool[:n], b = pool[n - shared:2n - shared]
+    fams = (("SUPER", superminhash.superminhash, golden.superminhash_golden,
+             "G1"),
+            ("SUPER2", superminhash.superminhash2,
+             golden.superminhash_golden, "G1"),
+            ("OPTDENS", densminhash.optdens_signatures,
+             golden.optdens_golden, None),
+            ("REVOPTDENS", densminhash.revoptdens_signatures,
+             golden.revoptdens_golden, None))
+    for shared in GOLDEN_SHARED:
+        exact = shared / (2 * n - shared)
+        pool = distinct_rows(rng, n_pairs, 2 * n - shared, wide=True)
+        items = np.zeros((2 * n_pairs, n), np.uint64)
+        items[0::2], items[1::2] = pool[:, :n], pool[:, n - shared:]
+        ti = torch.from_numpy(items.view(np.int64)).to(dev)
+        valid = torch.ones(ti.shape, dtype=torch.bool, device=dev)
+        cache = {}
+        for family, fn, gfn, kern in fams:
+            G.launches_min = 0
+            sig, _ = fn(ti, valid, m, seed)
+            if kern:
+                launches.setdefault(kern, []).append(G.launches_min)
+            t0 = time.perf_counter()
+            if gfn not in cache:      # SUPER and SUPER2: one algorithm
+                ga = [gfn(p[:n], m, seed) for p in pool[:n_golden]]
+                gb = [gfn(p[n - shared:], m, seed) for p in pool[:n_golden]]
+                # SuperMinHash is judged on winners, densification on values
+                j = 1 if family.startswith("SUPER") else 0
+                cache[gfn] = [float((x[j] == y[j]).mean())
+                              for x, y in zip(ga, gb)]
+            record(family, exact, pair_estimates(torch, sig), cache[gfn],
+                   time.perf_counter() - t0, slack=0.02)
+
+    # HLL: the cardinality of sets of 400 items
+    p = setsketch.SetSketchParams(m=m)
+    pool = distinct_rows(rng, n_hll, GOLDEN_HLL_SET, wide=True)
+    ti = torch.from_numpy(pool.view(np.int64)).to(dev)
+    valid = torch.ones(ti.shape, dtype=torch.bool, device=dev)
+    G.launches_max = 0
+    regs = setsketch.setsketch_signatures(ti, valid, p, seed)
+    launches["G2"] = [G.launches_max]
+    est = setsketch.cardinality(regs, p).cpu().numpy()
+    t0 = time.perf_counter()
+    gregs = [golden.setsketch_golden(x, m, p.b, p.a, p.q, seed)
+             for x in pool[:n_hll_golden]]
+    gest = [golden.setsketch_cardinality_golden(r, m, p.b, p.a)
+            for r in gregs]
+    gold_s = time.perf_counter() - t0
+    nn = GOLDEN_HLL_SET
+    sd_theory = nn / np.sqrt(m)
+    sd_mean_reg = (1.0 / np.log(p.b)) / np.sqrt(m)
+    mean_reg = (regs[:n_hll_golden].to(torch.float64).mean().item(),
+                float(np.mean(gregs)))
+    hll = {"exact": nn, "golden_host_s": gold_s,
+           "mean_register": mean_reg, "mean_register_tol": 4 * sd_mean_reg}
+    for side, e in (("card", est), ("golden", np.asarray(gest))):
+        tol = 3.5 * sd_theory / np.sqrt(e.size) + 0.05 * nn
+        hll[side] = {"mean": float(e.mean()), "sd": float(e.std()),
+                     "tol": tol, "sd_max": 2.5 * sd_theory, "n": int(e.size),
+                     "ok": bool(abs(e.mean() - nn) < tol
+                                and e.std() < 2.5 * sd_theory)}
+    print(f"HLL n={nn}: card mean {hll['card']['mean']:.1f} sd "
+          f"{hll['card']['sd']:.1f} ({n_hll} sets, tol "
+          f"{hll['card']['tol']:.1f}); golden mean "
+          f"{hll['golden']['mean']:.1f} sd {hll['golden']['sd']:.1f} "
+          f"({n_hll_golden} sets, tol {hll['golden']['tol']:.1f}, "
+          f"{gold_s:.2f} s on the host); sd max {2.5 * sd_theory:.1f}; "
+          f"mean register card {mean_reg[0]:.1f} golden {mean_reg[1]:.1f} "
+          f"(tol {4 * sd_mean_reg:.1f})", flush=True)
+    check(hll["card"]["ok"], "HLL on the card fails the rule")
+    check(hll["golden"]["ok"], "HLL's golden fails the rule")
+    check(abs(mean_reg[0] - mean_reg[1]) < 4 * sd_mean_reg,
+          "HLL's mean register differs from the golden's")
+    out["HLL"] = [hll]
+    if torch.device(dev).type == "cuda":
+        print(f"launches in the families' card calls: {launches}",
+              flush=True)
+        for name, ns in launches.items():
+            check(all(x > 0 for x in ns), f"{name} was not launched")
+    out["launches"] = launches
+    print(json.dumps({"golden_families": {
+        f: rs for f, rs in out.items() if f != "launches"}, "card": card}),
+        flush=True)
+    return out
+
+
+def host_leftovers(torch, rng, card: str, dev, ont_fq: str, ont_clean,
+                   bact_fq: str, oracle16, unique21) -> dict:
+    """Phase 14, over phase 5's ONT-like file and phase 8's bacterial
+    file and dumps."""
+    phase("14 the host leftovers on the card and the six families against "
+          "the published algorithms")
+    t_phase = time.perf_counter()
+    seconds, out = {}, {}
+    for name, fn in (
+            ("revcomp", lambda: revcomp_checks(torch, rng, card, dev)),
+            ("base_counts", lambda: base_count_checks(torch, ont_fq,
+                                                      ont_clean, dev)),
+            ("kmertypes", lambda: kmertype_checks(torch, rng, ont_clean,
+                                                  dev)),
+            ("reload", lambda: reload_checks(rng, bact_fq, oracle16,
+                                             unique21)),
+            ("load_all", lambda: load_all_check(torch, ont_fq, ont_clean,
+                                                dev)),
+            ("golden", lambda: golden_families(torch, rng, card, dev))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"timing": "phase14_s", **seconds,
+                      "total": out["seconds"]}), flush=True)
+    print(f"phase 14: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --baseline: K1-K7 and G1/G2 of this tree against another tree's, in
 # turns
 # ---------------------------------------------------------------------------
@@ -3185,6 +3660,45 @@ def against_baseline(torch, rng, root: str, card: str, ipd: dict,
             res[k].append(cli_profile(mains[k], argv))
     print(json.dumps({"timing": "datasketcher_b512_k8", **res,
                       "card": card}), flush=True)
+    parsefastq_against_baseline(torch, rng, card, order)
+
+
+def parsefastq_against_baseline(torch, rng, card: str, order, pkgs=None,
+                                count_repeats: int = 3) -> None:
+    """Phase 8's ``parsefastq kmer --count -s 16`` and ``--unique -s 21``
+    walls of several trees on one seeded bacterial file, in turns.
+    ``pkgs`` maps a name of ``order`` to a port package (default: the
+    baseline imported by :func:`load_port` and this tree's); each tree's
+    ``--count`` runs once untimed first, to build its kernels and parser."""
+    pkgs = pkgs or {"baseline": "baseline_port",
+                    "this": "kmerutils_tpu_torch"}
+    mains = {k: importlib.import_module(p + ".cli.parsefastq").main
+             for k, p in pkgs.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        fq = os.path.join(tmp, "bact.fastq")
+        reads = write_genome_fastq(fq, rng, 10_000, 4_600_000, 0.06)
+        mbases = sum(r.size for r in reads) / 1e6
+        del reads
+        for flags, reps in ((["--count", "-s", "16"], count_repeats),
+                            (["--unique", "-s", "21"], 1)):
+            argv = ["-f", fq, "--device", "cuda", "kmer", *flags]
+            if flags[0] == "--count":
+                for k in pkgs:
+                    check(run_parsefastq(argv, tmp, mains[k])[0] == 0,
+                          f"{k}: parsefastq {' '.join(flags)} failed")
+            walls = {k: [] for k in pkgs}
+            for k in order:
+                for _ in range(reps):
+                    rc, _, err, w = run_parsefastq(argv, tmp, mains[k])
+                    check(rc == 0 and "WARNING" not in err,
+                          f"{k}: parsefastq {' '.join(flags)} failed")
+                    walls[k].append(w)
+            print(json.dumps({
+                "timing": f"parsefastq_{flags[0][2:]}_k{flags[2]}",
+                "s": walls, "mbases": mbases,
+                "mbases_per_s": {k: [mbases / w for w in v]
+                                 for k, v in walls.items()},
+                "card": card}), flush=True)
 
 
 def merge_against_baseline(torch, rng, card: str, bounds: Bounds,
@@ -3376,8 +3890,8 @@ def main(argv=None) -> int:
             launches, fq8, clean8 = slice_runs(torch, rng, tmp, card, "cuda")
             t = timings(torch, rng, card, bounds)
             m = merge_kernels_vs_plain(torch, rng, card, bounds)
-            launches8, bact_reads, walls8, oracle16 = counting_runs(
-                torch, rng, tmp, card, "cuda")
+            launches8, bact_reads, walls8, oracle16, unique21 = \
+                counting_runs(torch, rng, tmp, card, "cuda")
             launches.update(launches8)
             k7 = k7_and_exact(torch, rng, card, bounds)
             torch.cuda.empty_cache()
@@ -3393,6 +3907,10 @@ def main(argv=None) -> int:
             p13 = sharded_path(torch, rng, card, os.path.join(tmp,
                                                               "bact.fastq"),
                                bact_reads, walls8, oracle16, "cuda")
+            torch.cuda.empty_cache()
+            host_leftovers(torch, rng, card, "cuda", fq8, clean8,
+                           os.path.join(tmp, "bact.fastq"), oracle16,
+                           unique21)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -13,10 +13,12 @@ patterns (ops/bitops.py).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.bitops import M32, lt_u64, revcomp_u32, revcomp_u64, shr64, \
     flip64
+from . import alphabet
 from .sequence import BASES_PER_WORD, ReadBatch
 
 
@@ -97,3 +99,24 @@ def kmer_coordinates(batch: ReadBatch, k: int, read_num_offset: int = 0):
     read_num = ((rows + read_num_offset) & M32)[:, None]
     pos = torch.arange(P, dtype=torch.int64, device=batch.device)[None, :]
     return read_num.expand(n, P), pos.expand(n, P)
+
+
+# ---------------------------------------------------------------------------
+# host-side value helpers (tests and format parity)
+# ---------------------------------------------------------------------------
+
+def kmer_value_from_str(s: str) -> int:
+    """2-bit big-endian integer value of an ACGT string (the reference's
+    compressed value of a k-mer)."""
+    v = 0
+    for c in alphabet.encode_2b(np.frombuffer(s.encode(), np.uint8)):
+        if c == 0xFF:
+            raise ValueError("non-ACGT base")
+        v = (v << 2) | int(c)
+    return v
+
+
+def kmer_str_from_value(v: int, k: int) -> str:
+    """The ACGT string of a k-mer's 2-bit value."""
+    codes = [(v >> (2 * (k - 1 - i))) & 3 for i in range(k)]
+    return alphabet.decode_2b(codes).tobytes().decode()

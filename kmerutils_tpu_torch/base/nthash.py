@@ -18,24 +18,21 @@ from __future__ import annotations
 import torch
 
 from ..ops.bitops import flip64, lt_u64, rotl64, rotr64, s64, shr64
-from .sequence import BASES_PER_WORD, ReadBatch
+from .sequence import ReadBatch
 
-# 64-bit base seeds A, C, G, T (the reference's nthash.rs seeds)
-SEEDS_2B = [s64(0x3C8BFBB395C60474), s64(0x3193C18562A02B4C),
-            s64(0x20323ED082572324), s64(0x295549F54BE24456)]
+# 64-bit base seeds (the reference's nthash.rs seeds), as u64 values
+SEED_A = 0x3C8BFBB395C60474
+SEED_C = 0x3193C18562A02B4C
+SEED_G = 0x20323ED082572324
+SEED_T = 0x295549F54BE24456
+
+# the seeds by 2-bit code, as int64 bit patterns
+SEEDS_2B = [s64(SEED_A), s64(SEED_C), s64(SEED_G), s64(SEED_T)]
 # complement seeds: the same table reversed (A<->T, C<->G)
 CSEEDS_2B = SEEDS_2B[::-1]
 
 MULTISHIFT = 27
 MULTISEED = 0x90B45D39FB6DA1FA
-
-
-def batch_codes(batch: ReadBatch) -> torch.Tensor:
-    """Per-base 2-bit codes of every word, int64[n_reads, n_words * 16]."""
-    w = batch.words.to(torch.int64)
-    shifts = 30 - 2 * torch.arange(BASES_PER_WORD, dtype=torch.int64,
-                                   device=w.device)
-    return ((w[:, :, None] >> shifts) & 3).reshape(w.shape[0], -1)
 
 
 def _prefix_xor(x: torch.Tensor) -> torch.Tensor:
@@ -55,7 +52,7 @@ def nthash_kmers(batch: ReadBatch, k: int):
     Returns (fhash, rhash, canonical, strand uint8, valid bool), each
     [n_reads, P] with P = max(max_len - k + 1, 1); strand is 1 when
     rhash < fhash (unsigned)."""
-    codes = batch_codes(batch)
+    codes = batch.codes().to(torch.int64)
     dev = codes.device
     L = codes.shape[1]
     P = max(batch.max_len - k + 1, 1)
@@ -92,3 +89,34 @@ def nthash_kmers_ascii(reads, k: int, device="cuda"):
     table maps A/C/G/T to the same four seeds)."""
     from .sequence import pack_ascii_reads
     return nthash_kmers(pack_ascii_reads(reads, device=device), k)
+
+
+# ---------------------------------------------------------------------------
+# scalar oracles (host): the hash of one k-mer straight from its definition
+# ---------------------------------------------------------------------------
+
+_M64 = (1 << 64) - 1
+
+
+def _rotl_int(x: int, r: int) -> int:
+    r %= 64
+    return ((x << r) | (x >> (64 - r))) & _M64 if r else x
+
+
+def nthash_init_ref(codes2b) -> int:
+    """Forward ntHash (u64 value) of the k-mer given by its 2-bit codes:
+    XOR over i of rotl(seed[b_i], k - 1 - i)."""
+    k = len(codes2b)
+    h = 0
+    for i, c in enumerate(codes2b):
+        h ^= _rotl_int(SEEDS_2B[int(c)] & _M64, k - 1 - i)
+    return h
+
+
+def nthash_rcomp_init_ref(codes2b) -> int:
+    """Reverse-complement ntHash (u64 value): XOR over i of
+    rotl(cseed[b_i], i)."""
+    h = 0
+    for i, c in enumerate(codes2b):
+        h ^= _rotl_int(CSEEDS_2B[int(c)] & _M64, i)
+    return h

@@ -320,6 +320,23 @@ def read_batches_overlapped(path: str, device="cuda", **kw):
         worker.join(timeout=10)
 
 
+def load_all(path: str, stats: IngestStats | None = None,
+             device="cuda") -> ReadBatch:
+    """The whole (small) file's clean reads as one ReadBatch on ``device``,
+    in file order (not the length-sorted batches of :func:`read_batches`)."""
+    reads = list(iter_clean_reads(path, stats))
+    if not reads:
+        raise ValueError(f"no clean reads in {path}")
+    L = max(c.size for c in reads)
+    codes = np.zeros((len(reads), L), dtype=np.uint8)
+    lengths = np.zeros(len(reads), dtype=np.int32)
+    for i, c in enumerate(reads):
+        codes[i, : c.size] = c
+        lengths[i] = c.size
+    words, lengths = pack_words(codes, lengths)
+    return batch_from_numpy(words, lengths, device)
+
+
 def write_fastq(path: str, reads, quals=None) -> None:
     """Write ASCII reads to a FASTQ file."""
     with open(path, "w") as f:

@@ -21,7 +21,8 @@ Port of kmerutils_tpu/io/formats.py (all little-endian):
     block: u32 numseq | u32 block index | u32 signature words.
 
 Readers return numpy arrays and read records to EOF (the header count is
-approximate by design).
+approximate by design); ``KmerCountReload`` wraps the two counting dumps
+with the reference's accessors.
 """
 
 from __future__ import annotations
@@ -271,3 +272,54 @@ def read_unique_kmer_dump(fname: str):
             raise ValueError("bad magic for unique-kmer dump")
         rec = np.frombuffer(f.read(), dtype=[("k", "<u4"), ("r", "<u4"), ("p", "<u4")])
     return k, rec["k"].copy(), rec["r"].copy(), rec["p"].copy()
+
+
+class KmerCountReload:
+    """A reloaded counting dump with the reference's accessors
+    (kmercount.rs:1132-1503): the counts of a multiple-kmer dump; the keys,
+    coordinates and rank accessor of a unique-kmer dump."""
+
+    def __init__(self, kmer_size: int, counts: dict | None = None,
+                 unique_keys=None, coords=None):
+        self.kmer_size = kmer_size
+        self.counts = counts
+        self.unique_keys = unique_keys   # key -> rank
+        self.coords = coords             # [(read_num, pos)] by rank
+
+    @staticmethod
+    def load_multiple_kmers_from_file(fname: str) -> "KmerCountReload":
+        k, counts = read_multiple_kmer_dump(fname)
+        return KmerCountReload(k, counts=counts)
+
+    @staticmethod
+    def load_unique_kmers_from_file(fname: str) -> "KmerCountReload":
+        k, keys, rn, ps = read_unique_kmer_dump(fname)
+        return KmerCountReload(
+            k, unique_keys=dict(zip(keys.tolist(), range(keys.size))),
+            coords=list(zip(rn.tolist(), ps.tolist())))
+
+    def get_kmer_count(self, value: int):
+        """Count of a k-mer value, None if absent."""
+        if self.counts is None:
+            return None
+        return self.counts.get(int(value))
+
+    def get_coord_from_rank(self, rank: int):
+        """(read_num, pos) of the rank-th unique k-mer, None out of range."""
+        if self.coords is None or not 0 <= rank < len(self.coords):
+            return None
+        return self.coords[rank]
+
+    def get_unique_kmer_coord(self, value: int):
+        """Coordinate of a unique k-mer value, None if absent (the
+        reference left this accessor unimplemented)."""
+        if self.unique_keys is None:
+            return None
+        rank = self.unique_keys.get(int(value))
+        return None if rank is None else self.coords[rank]
+
+    def get_multi_kmer_counts(self):
+        """All counts as a list, in dump order."""
+        if self.counts is None:
+            return None
+        return list(self.counts.values())

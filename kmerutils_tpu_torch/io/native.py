@@ -1,27 +1,78 @@
 """ctypes binding to the native C++ FASTA/FASTQ parser (native/fastx.cpp)
 and wavelet-matrix builder (native/wavelet.cpp).
 
-The same shared library as the JAX package's binding (native/libktpnative.so,
-built with ``make -C native`` at first use).  When the build or the load
-fails, ``available()`` is False and io/fastx.py parses in Python instead.
-This is host parsing: nothing here touches the device.
+The port builds its own copy of the library from ``native/*.cpp`` into
+``build/native/`` at the repository root (git-ignored), under a name keyed
+by a hash of the sources and the compiler command, at first use.  The
+build runs under a file lock, writes a temporary name and moves it into
+place with ``os.replace``, so concurrent processes neither race on the
+file nor load half of it; the JAX package's ``native/libktpnative.so`` is
+never written or read.  When the compiler is missing or the build or the
+load fails, ``available()`` is False and io/fastx.py parses in Python
+instead.  This is host parsing: nothing here touches the device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import glob
+import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libktpnative.so")
+_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..")
+_NATIVE_DIR = os.path.normpath(os.path.join(_ROOT, "native"))
+_BUILD_DIR = os.path.normpath(os.path.join(_ROOT, "build", "native"))
+# native/Makefile's flags
+_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared"]
+_LIBS = ["-lz", "-lpthread"]
 
 _lib = None
 _tried = False
 _lock = threading.Lock()
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_NATIVE_DIR, "*.cpp")))
+
+
+def library_path() -> str:
+    """Where the library for the current sources and compiler lives."""
+    h = hashlib.sha256()
+    cmd = [os.environ.get("CXX", "g++")] + _FLAGS + _LIBS
+    h.update(" ".join(cmd).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(_BUILD_DIR, f"libktpnative_{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> bool:
+    """Compile the sources into ``path`` unless another process already
+    has; True when the library is there."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            return True
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run([os.environ.get("CXX", "g++")] + _FLAGS
+                           + _sources() + ["-o", tmp] + _LIBS,
+                           check=True, capture_output=True)
+            os.replace(tmp, path)
+            return True
+        except (OSError, subprocess.CalledProcessError):
+            return False
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
 
 
 def _load():
@@ -30,14 +81,11 @@ def _load():
         if _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB_PATH):
-            try:
-                subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                               capture_output=True)
-            except (OSError, subprocess.CalledProcessError):
-                return None
+        path = library_path()
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
+            if not _build(path):
+                return None
+            lib = ctypes.CDLL(path)
             _declare(lib)
         except (OSError, AttributeError):  # no library, or a stale one
             return None

@@ -62,18 +62,74 @@ def lt_u64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return flip64(a) < flip64(b)
 
 
-def rotl64(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Rotate u64 bit patterns left by ``r`` (an int64 tensor that
-    broadcasts against ``x``), modulo 64."""
-    r = r % 64
+def _amount(r, x: torch.Tensor) -> torch.Tensor:
+    """A shift or rotate amount (a Python int or an integer tensor) as int64
+    on the device of ``x``."""
+    return torch.as_tensor(r, dtype=torch.int64, device=x.device)
+
+
+def _shr64_var(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """:func:`shr64` by an int64 tensor of amounts in [0, 64)."""
+    # the arithmetic shift's sign fill is masked off; s == 0 keeps x whole
+    low = (1 << (64 - s).clamp(max=63)) - 1
+    return torch.where(s == 0, x, (x >> s) & low)
+
+
+def _check_nbits(nbits: int) -> None:
+    if nbits not in (32, 64):
+        raise ValueError(f"nbits must be 32 or 64, got {nbits}")
+
+
+def rotl(x: torch.Tensor, r, nbits: int) -> torch.Tensor:
+    """Rotate left by ``r`` (any value, taken mod nbits; a Python int or an
+    integer tensor that broadcasts against ``x``).  nbits 32: u32 values
+    in int64; nbits 64: u64 bit patterns in int64."""
+    _check_nbits(nbits)
+    r = _amount(r, x) % nbits
+    if nbits == 32:
+        return ((x << r) | (x >> (32 - r))) & M32
     # the arithmetic shift's sign fill is masked off; r == 0 masks it all
     right = (x >> (64 - r).clamp(max=63)) & ((1 << r) - 1)
     return (x << r) | right
 
 
-def rotr64(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Rotate u64 bit patterns right by ``r`` modulo 64."""
-    return rotl64(x, -r % 64)
+def rotr(x: torch.Tensor, r, nbits: int) -> torch.Tensor:
+    """Rotate right by ``r`` (any value, taken mod nbits)."""
+    return rotl(x, -_amount(r, x), nbits)
+
+
+def rotl64(x: torch.Tensor, r) -> torch.Tensor:
+    return rotl(x, r, 64)
+
+
+def rotr64(x: torch.Tensor, r) -> torch.Tensor:
+    return rotr(x, r, 64)
+
+
+def rotl32(x: torch.Tensor, r) -> torch.Tensor:
+    return rotl(x, r, 32)
+
+
+def _shift_safe(x: torch.Tensor, s, nbits: int, left: bool) -> torch.Tensor:
+    _check_nbits(nbits)
+    s = _amount(s, x)
+    sm = s % nbits
+    if left:
+        y = (x << sm) & M32 if nbits == 32 else x << sm
+    else:
+        y = x >> sm if nbits == 32 else _shr64_var(x, sm)
+    return torch.where(s >= nbits, 0, y)
+
+
+def shl_safe(x: torch.Tensor, s, nbits: int) -> torch.Tensor:
+    """x << s in nbits (32: u32 values in int64, 64: u64 bit patterns),
+    0 for any s >= nbits."""
+    return _shift_safe(x, s, nbits, left=True)
+
+
+def shr_safe(x: torch.Tensor, s, nbits: int) -> torch.Tensor:
+    """Logical x >> s in nbits, 0 for any s >= nbits."""
+    return _shift_safe(x, s, nbits, left=False)
 
 
 def u32_to_i32(x: torch.Tensor) -> torch.Tensor:

@@ -22,8 +22,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .base.sequence import BASES_PER_WORD, ReadBatch
-from .ops.bitops import M32
+from .base.alphabet import base_counts
+from .base.sequence import ReadBatch
 
 # device accumulator bins: reads at or beyond _HISTO_DEV bases clamp into
 # the top length bin; reads above upper_histo additionally count into
@@ -45,15 +45,8 @@ def _accum_batch(state, batch: ReadBatch, upper_histo: int) -> None:
     n_reads i64)."""
     acgt, histo, histo_out, n_reads = state
     dev = batch.device
-    w = batch.words.to(torch.int64) & M32
-    shifts = 30 - 2 * torch.arange(BASES_PER_WORD, dtype=torch.int64,
-                                   device=dev)
-    codes = ((w[:, :, None] >> shifts) & 3).reshape(w.shape[0], -1)
+    counts = base_counts(batch.codes(), batch.valid_mask())
     lengths = batch.lengths.to(torch.int64)
-    pos = torch.arange(codes.shape[1], dtype=torch.int64, device=dev)
-    valid = pos[None, :] < lengths[:, None]
-    counts = torch.stack([((codes == b) & valid).sum(dim=1)
-                          for b in range(4)], dim=1)
     real = lengths > 0            # zero-length rows carry no read
     pct = torch.round(100.0 * counts.to(torch.float64)
                       / lengths.clamp(min=1).to(torch.float64)[:, None])

@@ -19,7 +19,6 @@ import torch
 
 import jax.numpy as jnp
 from kmerutils_tpu.base import sequence as jseq
-from kmerutils_tpu.sketch import golden
 from kmerutils_tpu.sketch import jaccard as jjac
 from kmerutils_tpu.sketch import setsketch as jss
 from kmerutils_tpu.sketch import superminhash as jsm
@@ -660,37 +659,6 @@ def test_grid_sass_lookup_fails_loudly(monkeypatch, names, ok):
 
 
 # ---------------------------------------------------------------------------
-# statistics against the golden implementation of the published algorithm
-# ---------------------------------------------------------------------------
-
-def test_superminhash2_estimates_like_golden():
-    """The port's SUPER2 against sketch/golden.py's SuperMinHash over 24
-    seeds: both estimate J = 0.5 without bias and with at most
-    binomial-order spread (tests/test_sketch.py's rule for the JAX
-    package)."""
-    rng = np.random.default_rng(17)
-    pool = rng.integers(1, 2**62, 120, dtype=np.uint64)
-    a, b, jex = pool[:60], pool[20:80], 0.5
-    m, trials = 64, 24
-    ta = torch.from_numpy(a.view(np.int64).copy())[None]
-    tb = torch.from_numpy(b.view(np.int64).copy())[None]
-    ones = torch.ones((1, 60), dtype=torch.bool)
-    est_t, est_g = [], []
-    for s in range(trials):
-        sa, _ = tsm.superminhash2(ta, ones, m, s)
-        sb, _ = tsm.superminhash2(tb, ones, m, s)
-        est_t.append(float(tsm.superminhash_jaccard(sa[0], sb[0])))
-        _, wa = golden.superminhash_golden(a, m, s)
-        _, wb = golden.superminhash_golden(b, m, s)
-        est_g.append(float((wa == wb).mean()))
-    tol = 3.5 * np.sqrt(jex * (1 - jex) / m / trials) + 0.02
-    ref_sd = np.sqrt(jex * (1 - jex) / m)
-    for est in (est_t, est_g):
-        assert abs(np.mean(est) - jex) < tol
-        assert np.std(est) < 1.7 * ref_sd
-
-
-# ---------------------------------------------------------------------------
 # every entry point that places data defaults to the card
 # ---------------------------------------------------------------------------
 
@@ -704,7 +672,7 @@ def _device_entry_points():
             sequence.pack_ascii_reads, fastx.read_batches_overlapped,
             stream.StreamCountTable.create, stream.table_from_jax,
             nthash.nthash_kmers_ascii, tournament.slot_consts,
-            kmeraa.pack_aa_reads]
+            kmeraa.pack_aa_reads, fastx.load_all]
 
 
 @pytest.mark.parametrize("fn", _device_entry_points(),

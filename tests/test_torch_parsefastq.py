@@ -5,7 +5,9 @@ Tolerance: byte-identical ``.multi_kmer.bin``, ``.once_kmer.bin``,
 keys), 16 (u32) and 20 (u64 table), --count -c 16, --unique with k = 16 and
 21 (coordinates; reads of several lengths, so the port's length-sorted
 batch rows differ from file order), a spill run that writes at least
-two segments, and the statistics-only call; k=15 returns 1 in both.  The
+two segments, and the statistics-only call; k=15 returns 1 in both.
+Either package's ``KmerCountReload`` reloads either CLI's --count and
+--unique dumps with equal counts, keys, coordinates and accessors.  The
 --no-spill run past capacity is held to the drop contract instead (the
 port's batches have no padding rows, so its compaction timing may differ
 from JAX's where entries drop): the largest keys go, a warning is printed,
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 
 from kmerutils_tpu.cli import parsefastq as jcli
+from kmerutils_tpu.io import formats as jformats
 from kmerutils_tpu_torch.cli import parsefastq as tcli
 from kmerutils_tpu_torch.io import fastx, formats
 
@@ -145,3 +148,55 @@ def test_no_spill_drop_contract(tmp_path):
     # nothing survives but that key itself
     assert all(key <= wrong[0] for key in got)
 
+
+
+RELOAD_CASES = ["count_k11", "count_k16", "count_k20", "unique_k16",
+                "unique_k21"]
+
+
+def reload_both(path: str):
+    """The dump reloaded by the JAX package and by the port."""
+    multi = path.endswith("multi_kmer.bin")
+    load = ("load_multiple_kmers_from_file" if multi
+            else "load_unique_kmers_from_file")
+    return (getattr(jformats.KmerCountReload, load)(path),
+            getattr(formats.KmerCountReload, load)(path))
+
+
+@pytest.mark.parametrize("case", RELOAD_CASES)
+def test_kmer_count_reload_matches_jax_on_both_clis_dumps(case, jax_outputs,
+                                                          tmp_path):
+    """Each package's reload of the JAX CLI's dump and of the port's: equal
+    counts, keys, coordinates and accessors (an absent key, ranks -1 and n
+    give None)."""
+    fx, argv = CASES[case]
+    rc, _, files = run_cli(tcli.main, fx, ["--device", "cpu"] + argv,
+                           str(tmp_path / "port"))
+    assert rc == 0
+    name = "in.fastq." + ("multi" if "count" in case else "once") + \
+        "_kmer.bin"
+    paths = {"port": str(tmp_path / "port" / name),
+             "jax": str(tmp_path / ("jax." + name))}
+    with open(paths["jax"], "wb") as f:
+        f.write(jax_outputs[case][2][name])
+    rng = np.random.default_rng(len(case))
+    for who, path in paths.items():
+        j, t = reload_both(path)
+        assert (t.kmer_size, t.counts, t.unique_keys, t.coords) == \
+            (j.kmer_size, j.counts, j.unique_keys, j.coords), who
+        assert t.get_multi_kmer_counts() == j.get_multi_kmer_counts()
+        keys = list(t.counts or t.unique_keys)
+        assert keys, who
+        probe = [keys[int(i)] for i in rng.integers(0, len(keys), 50)]
+        absent = max(keys) + 1
+        for key in probe + [absent]:
+            assert t.get_kmer_count(key) == j.get_kmer_count(key)
+            assert t.get_unique_kmer_coord(key) == \
+                j.get_unique_kmer_coord(key)
+        n = len(t.coords or [])
+        for rank in [-1, 0, n // 2, n - 1, n]:
+            assert t.get_coord_from_rank(rank) == j.get_coord_from_rank(rank)
+        assert t.get_kmer_count(absent) is None
+        assert t.get_unique_kmer_coord(absent) is None
+        assert t.get_coord_from_rank(-1) is None
+        assert t.get_coord_from_rank(n) is None
