@@ -184,6 +184,18 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    (``sketch/golden.py``) on the host over the first 48 pairs (12 sets),
    both held to tests/test_sketch.py's mean and spread rules; the launch
    counters of K1, G1 and G2, each set to 0 before its family, must be > 0.
+15. the last interface gaps on the card: ``block_sketch(hash_name=
+   "identity")`` at k=8 (K1) and k=21 (K2) on a bench-shape batch equal to
+   the same call with the plain kernels, and the k=8 live blocks' u32
+   signatures dumped as u64 words (``write_signature_dump(sig_size=8)``)
+   and read back; ``read_batches(bucket=False)`` on the host and
+   ``read_batches_overlapped(queue_depth=1, bucket=False)`` onto the card
+   over phase 5's file, each equal to its clean reads packed in file order
+   by numpy; the k=16 table of phase 8's file (the ``--count`` path through
+   the library) finalized as ``--count`` does with and without
+   ``phases=``: the same arrays, equal to phase 8's oracle, with
+   ``agg_s``, ``records`` and ``xfer_s`` filled; the counters of K1 and K2
+   (the block calls) and K4 (the ``finalize(phases=)`` call) must be > 0.
 
 With ``--baseline ROOT`` (the tree of another commit, e.g. unpacked from
 ``git archive`` into a git-ignored directory) the script runs phases 1-2,
@@ -203,7 +215,7 @@ tournament kernels' device ms), and phase 8's ``parsefastq kmer --count -s
 (wall s and Mbases/s).  It prints one JSON line per result and the card
 line, and no ``ok`` line.
 
-The temporary files of phases 5-14 live in one directory, removed at the
+The temporary files of phases 5-15 live in one directory, removed at the
 end.  The last three lines are the card's name and power limit, the
 kernels' JSON record (each kernel's launches on its path, exactness, ms,
 plain_ms, bound_ms with bound_by, and library_ms or null) and
@@ -3455,7 +3467,8 @@ def golden_families(torch, rng, card: str, dev, n_pairs: int = 2048,
         ti = torch.from_numpy(items.view(np.int32)).to(dev)
         tw = torch.from_numpy(weights).to(dev)
         T.launches_u32 = 0
-        sig, _ = probminhash.probminhash_signatures(ti, tw, m, seed)
+        sig, _ = probminhash.probminhash_signatures(ti, tw, m,
+                                                      seed=seed)
         launches.setdefault("K1", []).append(T.launches_u32)
         t0 = time.perf_counter()
         gold = [float((golden.probminhash3_golden(p, wa, m, seed)
@@ -3577,6 +3590,178 @@ def host_leftovers(torch, rng, card: str, dev, ont_fq: str, ont_clean,
     print(json.dumps({"timing": "phase14_s", **seconds,
                       "total": out["seconds"]}), flush=True)
     print(f"phase 14: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the last interface gaps on the card
+# ---------------------------------------------------------------------------
+
+def identity_blocks(tmp: str, bench, m: int = 200,
+                    bs: int = 512) -> dict:
+    """block_sketch(hash_name="identity") at k=8 (K1) and k=21 (K2) on the
+    bench batch, equal to the same call with the plain kernels; then the
+    k=8 live blocks' u32 signatures dumped as u64 words (sig_size=8) and
+    read back.  The launch counts must be > 0 on a CUDA device."""
+    from kmerutils_tpu_torch.io import formats
+    from kmerutils_tpu_torch.ops import tournament as T
+    from kmerutils_tpu_torch.sketch import block
+
+    # --- the main path: K1 / K2 counts from 0 to what the two calls made ---
+    T.launches_u32 = T.launches_u64 = 0
+    t0 = time.perf_counter()
+    card_res = {k: block.block_sketch(bench, k, m, bs, "identity")
+                for k in (8, 21)}
+    s = time.perf_counter() - t0
+    launches = {"K1": T.launches_u32, "K2": T.launches_u64}
+    # -----------------------------------------------------------------------
+    print(f"launches on block_sketch(hash_name='identity'): {launches}",
+          flush=True)
+    check(bench.device.type != "cuda"
+          or (launches["K1"] > 0 and launches["K2"] > 0),
+          "K1/K2 not launched by the identity block sketch")
+    for k, res in card_res.items():
+        with plain_kernels():
+            want = block.block_sketch(bench, k, m, bs, "identity")
+        live = res.live
+        bad = int((res.sigs[live] != want.sigs[live]).sum())
+        ok = (np.array_equal(live, want.live) and bad == 0
+              and res.sigs.dtype == (np.uint32 if k <= 16 else np.uint64)
+              and bool((res.sigs[live] < np.uint64(4) ** k).all()))
+        print(f"identity blocks k={k}: {int(live.sum())} live blocks of "
+              f"{live.size}, {bad} slots differ from the plain path: "
+              f"{'equal' if ok else 'DIFFERENT'}", flush=True)
+        check(ok, f"identity blocks k={k} != plain path")
+    sigs = card_res[8].sigs[card_res[8].live]
+    dump = os.path.join(tmp, "sigs_u64words.bin")
+    formats.write_signature_dump(dump, 8, sigs, sig_size=8)
+    kk, mm, back = formats.read_signature_dump(dump)
+    with open(dump, "rb") as f:
+        head = np.frombuffer(f.read(16), "<u4").tolist()
+    ok = (head == [0xCEABEADD, 8, m, 8] and (kk, mm) == (8, m)
+          and back.dtype == np.uint64
+          and np.array_equal(back, sigs.astype(np.uint64))
+          and os.path.getsize(dump) == 16 + 8 * sigs.size)
+    print(f"sig_size=8 dump of {sigs.shape[0]} x {m} u32 signatures: header "
+          f"{head}, read back equal: {ok}", flush=True)
+    check(ok, "sig_size=8 dump does not read back")
+    return {"launches": launches, "card_s": s}
+
+
+def file_order_checks(torch, fq: str, clean, dev) -> dict:
+    """read_batches(bucket=False) on the host and read_batches_overlapped(
+    queue_depth=1, bucket=False) onto the card, each equal to the clean
+    reads packed in file order (numpy), rows and batches in file order."""
+    from kmerutils_tpu_torch.base.sequence import pack_words
+    from kmerutils_tpu_torch.io import fastx
+
+    def oracle_ok(batches) -> bool:
+        idx = np.concatenate([i for _, i in batches])
+        if not np.array_equal(idx, np.arange(len(clean))):
+            return False
+        for b, i in batches:
+            W = b.words.shape[1]
+            codes = np.zeros((len(i), 16 * (W - 1)), np.uint8)
+            for r, j in enumerate(i):
+                codes[r, : clean[j].size] = clean[j]
+            words, lengths = pack_words(codes, [clean[j].size for j in i])
+            if not (np.array_equal(b.words.cpu().numpy().view(np.uint32),
+                                   words)
+                    and np.array_equal(b.lengths.cpu().numpy(), lengths)):
+                return False
+        return True
+
+    t0 = time.perf_counter()
+    host = list(fastx.read_batches(fq, bucket=False))
+    s_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = fastx.IngestStats()
+    over = list(fastx.read_batches_overlapped(fq, device=dev, queue_depth=1,
+                                              bucket=False, stats=st))
+    sync(torch, dev)
+    s_over = time.perf_counter() - t0
+    on_card = all(b.words.device.type == torch.device(dev).type
+                  for b, _ in over)
+    ok_host, ok_over = oracle_ok(host), oracle_ok(over)
+    same = len(host) == len(over) and all(
+        torch.equal(a.words, b.words.cpu()) and np.array_equal(i, j)
+        for (a, i), (b, j) in zip(host, over))
+    widths = sorted({b.words.shape[1] for b, _ in host})
+    print(f"file-order batches: {len(host)} batches of widths {widths} "
+          f"words; read_batches(bucket=False) = oracle: {ok_host} "
+          f"({s_host:.2f} s); read_batches_overlapped(queue_depth=1) on "
+          f"{over[0][0].words.device} = oracle: {ok_over}, = host batches: "
+          f"{same} ({s_over:.2f} s); {st.n_reads} reads", flush=True)
+    check(ok_host and ok_over and same and on_card
+          and st.n_reads == len(clean), "file-order batches != oracle")
+    return {"batches": len(host), "host_s": s_host, "overlapped_s": s_over}
+
+
+def finalize_phases_check(torch, fq: str, oracle16, dev) -> dict:
+    """The k=16 table of phase 8's file (the --count path, through the
+    library), finalized as --count does with and without phases=: the
+    same arrays, equal to phase 8's oracle; the three keys present."""
+    from kmerutils_tpu_torch.count import stream
+    from kmerutils_tpu_torch.io import fastx
+    from kmerutils_tpu_torch.ops import merge as M
+    folder = stream.StagedFolder(stream.StreamCountTable.create(
+        1 << 27, wide=False, coords=False, device=dev))
+    for batch, idx in fastx.read_batches_overlapped(fq, device=dev):
+        folder.push(stream.batch_entries(batch, 16, idx))
+    table = folder.flush()
+    plain = stream.finalize(table, min_count=2, count_clamp=255)
+
+    # --- the main path: K4's count from 0 to what finalize(phases) made ---
+    M.reset_launches()
+    ph: dict = {}
+    t0 = time.perf_counter()
+    got = stream.finalize(table, min_count=2, count_clamp=255, phases=ph)
+    s = time.perf_counter() - t0
+    k4 = M.launches_aggregate
+    # -----------------------------------------------------------------------
+    print(f"launches on finalize(phases=...): K4 {k4}", flush=True)
+    keys, counts = oracle16
+    sel = counts >= 2
+    same = all(np.array_equal(a, b) and a.dtype == b.dtype
+               for a, b in zip(got[:4], plain[:4])) and got[4] == plain[4]
+    ok = (same and got[4] == 0
+          and np.array_equal(got[0].astype(np.uint64), keys[sel])
+          and np.array_equal(got[1].astype(np.int64),
+                             np.minimum(counts[sel], 255)))
+    print(f"finalize(phases=...): {json.dumps(ph)}; {len(got[0])} records, "
+          f"= phases=None: {same}, = phase 8's oracle: {ok} ({s:.3f} s)",
+          flush=True)
+    check(ok, "finalize(phases=...) != phases=None or the oracle")
+    check(set(ph) == {"agg_s", "records", "xfer_s"}
+          and ph["records"] == len(got[0]) and ph["agg_s"] > 0
+          and ph["xfer_s"] > 0, f"finalize phases {ph}")
+    check(torch.device(dev).type != "cuda" or k4 > 0,
+          "K4 was not launched by finalize(phases=...)")
+    return {"launches": {"K4": k4}, "phases": ph, "seconds": s}
+
+
+def interface_gaps(torch, rng, card: str, tmp: str, dev, ont_fq: str,
+                   ont_clean, bact_fq: str, oracle16,
+                   bench_shape=(1024, 6000)) -> dict:
+    """Phase 15, over the bench batch, phase 5's ONT-like file and phase
+    8's bacterial file and oracle.  Every part also runs with
+    ``dev="cpu"`` (a smaller ``bench_shape`` there)."""
+    from kmerutils_tpu_torch.base.sequence import pack_codes
+    phase("15 the last interface gaps on the card: identity blocks, "
+          "file-order batches, queue depth, finalize phases, u64 dump words")
+    t_phase = time.perf_counter()
+    n, L = bench_shape
+    bench = pack_codes(rng.integers(0, 4, size=(n, L), dtype=np.uint8),
+                       np.full(n, L, np.int32), device=dev)
+    out = {"blocks": identity_blocks(tmp, bench),
+           "file_order": file_order_checks(torch, ont_fq, ont_clean, dev),
+           "finalize": finalize_phases_check(torch, bact_fq, oracle16, dev)}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"timing": "phase15_s", "card": card,
+                      "launches": {**out["blocks"]["launches"],
+                                   **out["finalize"]["launches"]},
+                      "total": out["seconds"]}), flush=True)
+    print(f"phase 15: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -3911,6 +4096,9 @@ def main(argv=None) -> int:
             host_leftovers(torch, rng, card, "cuda", fq8, clean8,
                            os.path.join(tmp, "bact.fastq"), oracle16,
                            unique21)
+            torch.cuda.empty_cache()
+            interface_gaps(torch, rng, card, tmp, "cuda", fq8, clean8,
+                           os.path.join(tmp, "bact.fastq"), oracle16)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

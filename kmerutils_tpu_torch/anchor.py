@@ -10,8 +10,9 @@ on the batch's device (sketch/minhash.py).
 
 Deliberate differences from the JAX package:
 
-* the port's batches are sorted by length within each parse window, so a
-  row's read number comes from the batch's ``read_indices`` and
+* ``anchor_computation`` reads length-sorted batches (``read_batches``'
+  default; the JAX version reads ``bucket=False``), so a row's read number
+  comes from the batch's ``read_indices`` and
   ``anchor_computation`` returns (and dumps) the anchors ordered by read
   number, then slice position: the JAX order, which its file-order batches
   give;

@@ -36,6 +36,7 @@ costs one ``.item()`` for its live count.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -255,7 +256,8 @@ def grow(table: StreamCountTable, new_capacity: int) -> StreamCountTable:
 
 
 def finalize(table: StreamCountTable, min_count: int = 1,
-             max_count: int | None = None, count_clamp: int | None = None):
+             max_count: int | None = None, count_clamp: int | None = None,
+             phases: dict | None = None):
     """Aggregate + filter + compact on the device (kernel K4), then one copy
     to the host.
 
@@ -265,10 +267,22 @@ def finalize(table: StreamCountTable, min_count: int = 1,
     0xFF/0xFFFF and returns them as uint8/uint16, as the dump formats
     store them.  Keys come back whole: the JAX version's delta-encoded key
     transfer was built for a slow host link and is not ported.
+
+    ``phases``, a dict, gets added to it, as in the JAX version:
+    ``agg_s``, wall seconds from entry until the live count is on the host
+    (K4 and its read of ``n``); ``records``, that count; ``xfer_s``, wall
+    seconds of the copies to the host and their unpacking (not added when
+    nothing is live, as the JAX version copies nothing then).  It adds no
+    synchronisation: K4 already reads ``n`` and the copies already wait.
     """
+    t0 = time.perf_counter() if phases is not None else 0.0
     key, cnt, crd, n = merge.aggregate_fold(table.key, table.cnt, table.crd,
                                             table.used, lo=min_count,
                                             hi=max_count)
+    if phases is not None:
+        t1 = time.perf_counter()
+        phases["agg_s"] = phases.get("agg_s", 0.0) + (t1 - t0)
+        phases["records"] = phases.get("records", 0) + n
     keys = key[:n].cpu().numpy()
     keys = keys.view(np.uint64) if table.wide else keys.view(np.uint32)
     counts = cnt[:n].cpu().numpy().view(np.uint32)
@@ -282,6 +296,9 @@ def finalize(table: StreamCountTable, min_count: int = 1,
     else:
         rn = np.zeros(n, np.uint32)
         ps = np.zeros(n, np.uint32)
+    if phases is not None and n:
+        phases["xfer_s"] = phases.get("xfer_s", 0.0) \
+            + (time.perf_counter() - t1)
     return keys, counts, rn, ps, int(table.n_dropped)
 
 

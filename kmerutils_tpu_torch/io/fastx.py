@@ -3,10 +3,10 @@
 Port of kmerutils_tpu/io/fastx.py.  Reads FASTA or FASTQ (plain or gzip),
 drops whole reads that contain any non-ACGT base, 2-bit packs the survivors
 and counts the same ingest statistics.  ``read_batches`` yields the same
-reads in the same rows as the JAX version (length bucketing, the
-{2^i, 1.5 * 2^i} width ladder, power-of-two row quotas, an 8 Mi-base cap on
-a batch's padded size) but without its all-zero padding rows; its batches
-stay on the host.
+reads in the same rows as the JAX version (length bucketing or file
+order, the {2^i, 1.5 * 2^i} width ladder, power-of-two row quotas, an 8
+Mi-base cap on a batch's padded size) but without its all-zero padding
+rows; its batches stay on the host.
 ``read_batches_overlapped`` parses in a thread and uploads each batch from
 pinned memory with ``non_blocking=True``.
 """
@@ -100,18 +100,24 @@ def _add_native_stats(stats: IngestStats | None, reader) -> None:
         stats.n_reads += int(reader.stats[3] - reader.stats[2])
 
 
-def iter_clean_reads(path: str, stats: IngestStats | None = None):
+def iter_clean_reads(path: str, stats: IngestStats | None = None,
+                     with_quality: bool = False):
     """Yield 2-bit code arrays (uint8) of the pure-ACGT reads, dropping the
-    rest; the native parser when it is built, Python otherwise."""
-    from . import native
-    if native.available():
-        reader = native.NativeFastxReader(path)
-        for codes, offsets in reader:
-            for i in range(len(offsets) - 1):
-                yield codes[offsets[i] : offsets[i + 1]]
-        _add_native_stats(stats, reader)
-        return
-    for _rid, seq, _qual in iter_fastx(path):
+    rest; the native parser when it is built, Python otherwise.
+
+    ``with_quality=True`` yields ``(codes, quality uint8 | None)`` instead,
+    through the Python parser (the native one drops the quality lines);
+    FASTA records have no quality and give None."""
+    if not with_quality:
+        from . import native
+        if native.available():
+            reader = native.NativeFastxReader(path)
+            for codes, offsets in reader:
+                for i in range(len(offsets) - 1):
+                    yield codes[offsets[i] : offsets[i + 1]]
+            _add_native_stats(stats, reader)
+            return
+    for _rid, seq, qual in iter_fastx(path):
         raw = np.frombuffer(seq, dtype=np.uint8)
         codes = alphabet.ENCODE_2B[raw]
         bad = int((codes == 0xFF).sum())
@@ -124,7 +130,11 @@ def iter_clean_reads(path: str, stats: IngestStats | None = None):
             continue
         if stats is not None:
             stats.n_reads += 1
-        yield codes
+        if with_quality:
+            yield codes, (np.frombuffer(qual, dtype=np.uint8) if qual
+                          else None)
+        else:
+            yield codes
 
 
 def _qwidth(L: int) -> int:
@@ -135,18 +145,21 @@ def _qwidth(L: int) -> int:
 
 
 def read_batches(path: str, batch_reads: int = 10000,
-                 stats: IngestStats | None = None):
+                 stats: IngestStats | None = None, bucket: bool = True):
     """Yield (ReadBatch on the host, read_indices int64[rows]) with at most
     ``batch_reads`` reads each; ``read_indices`` maps batch rows to read
     numbers in file order.
 
-    The batching rules are the JAX version's defaults, so both yield the
-    same reads in the same rows: reads of a parse window are sorted by
-    length; a batch's width goes up to the next rung of the
-    {2^i, 1.5 * 2^i} ladder (>= 256 bases); a group closes at a
-    power-of-two row quota or at 8 Mi padded bases; the window flushes
-    every ~4 batches of new bases and carries groups below their quota
-    into the next window.  Unlike the JAX version, a batch has only its
+    The batching rules are the JAX version's (with its ``quantize=True``),
+    so both yield the same reads in the same rows: with ``bucket=True``
+    the reads of a parse window are sorted by length and a group stops at
+    a width rung; with ``bucket=False`` rows and batches keep file order
+    and a group may span rungs.  A batch's width goes up to the next rung
+    of the {2^i, 1.5 * 2^i} ladder (>= 256 bases); a group closes at a
+    power-of-two row quota (at its widest read's rung) or at 8 Mi padded
+    bases; the window flushes every ~4 batches of new bases and carries
+    groups below their quota into the next window.  Unlike the JAX
+    version, a batch has only its
     real rows: eager PyTorch has no compiled shapes to keep stable, so
     padding rows would only add device work.  With the native library the
     reads arrive already packed; otherwise they are parsed and packed in
@@ -169,7 +182,8 @@ def read_batches(path: str, batch_reads: int = 10000,
         if not window:
             return
         lens = np.array([ln for _, ln in window], dtype=np.int64)
-        order = np.argsort(lens, kind="stable")
+        order = (np.argsort(lens, kind="stable") if bucket
+                 else np.arange(len(window)))
         keep: list = []
         keep_idx: list[int] = []
         start = 0
@@ -179,7 +193,7 @@ def read_batches(path: str, batch_reads: int = 10000,
             full = False
             while start + take < len(window):
                 Lc = max(L0, int(lens[order[start + take]]))
-                if _qwidth(Lc) != _qwidth(L0):
+                if bucket and _qwidth(Lc) != _qwidth(L0):
                     break                      # rung boundary: not full
                 Lq = _qwidth(Lc)
                 if take + 1 > quota_rows(Lq) \
@@ -249,10 +263,6 @@ def read_batches(path: str, batch_reads: int = 10000,
     yield from flush(final=True)
 
 
-# parsed batches waiting for the consumer (bounds pinned host memory)
-_QUEUE_DEPTH = 3
-
-
 def _put(q: _queue.Queue, item, stop: threading.Event) -> bool:
     """Blocking put that gives up once ``stop`` is set."""
     while not stop.is_set():
@@ -264,19 +274,26 @@ def _put(q: _queue.Queue, item, stop: threading.Event) -> bool:
     return False
 
 
-def read_batches_overlapped(path: str, device="cuda", **kw):
+def read_batches_overlapped(path: str, device="cuda", queue_depth: int = 3,
+                            **kw):
     """:func:`read_batches` with parsing in a producer thread and each batch
-    moved to ``device``.
+    moved to ``device``; every other keyword goes to :func:`read_batches`.
 
     For a CUDA device the producer pins each host batch and the consumer
     issues ``non_blocking`` copies on the current stream, so the upload of a
     batch overlaps the compute already queued.  The pinned host tensors are
     kept until an event recorded after their copy has completed.  A
     ``stats=`` keyword is filled before the stream ends.
+
+    ``queue_depth`` bounds the parsed batches waiting for the consumer, and
+    so the pinned host memory.  The JAX version bounds each of its two
+    stages (parse, then a device-put thread) by this number; here the copy
+    is issued by the consumer, so the one parse stage is the whole
+    pipeline and its queue takes the bound.
     """
     device = torch.device(device)
     cuda = device.type == "cuda"
-    q: _queue.Queue = _queue.Queue(maxsize=_QUEUE_DEPTH)
+    q: _queue.Queue = _queue.Queue(maxsize=queue_depth)
     stop = threading.Event()
     end = object()
 

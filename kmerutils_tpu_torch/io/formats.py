@@ -37,10 +37,14 @@ MAGIC_SIG_DUMP = 0xCEABEADD
 MAGIC_BLOCKSIG_DUMP = 0xCEABBADD
 
 
-def write_signature_dump(fname: str, kmer_size: int, signatures) -> None:
-    """signatures: numpy [n_reads, sketch_size] of uint32 or uint64."""
+def write_signature_dump(fname: str, kmer_size: int, signatures,
+                         sig_size: int | None = None) -> None:
+    """signatures: numpy [n_reads, sketch_size] of uint32 or uint64, written
+    as words of ``sig_size`` bytes (4 or 8; the array's own width when
+    None), cast as numpy's ``astype`` casts."""
     sigs = np.asarray(signatures)
-    sig_size = sigs.dtype.itemsize
+    if sig_size is None:
+        sig_size = sigs.dtype.itemsize
     n, m = sigs.shape
     with open(fname, "wb") as f:
         f.write(struct.pack("<IIII", MAGIC_SIG_DUMP, sig_size, m, kmer_size))

@@ -33,10 +33,12 @@ class BlockSketchResult:
 
 
 def block_sketch(batch: ReadBatch, k: int, m: int, block_size: int,
-                 seed: int = 0) -> BlockSketchResult:
+                 hash_name: str = "wang", seed: int = 0) -> BlockSketchResult:
     """Sketch every ``block_size`` window of k-mer start positions of every
-    read, on the batch's device."""
-    items, valid = hashed_kmers(batch, k)
+    read, on the batch's device.  ``hash_name`` is the k-mer hash of
+    :func:`sketch.jaccard.hashed_kmers`: ``"wang"`` or ``"identity"`` (the
+    canonical k-mer values themselves)."""
+    items, valid = hashed_kmers(batch, k, hash_name)
     n, P = items.shape
     nb = -(-P // block_size)
     pad = nb * block_size - P

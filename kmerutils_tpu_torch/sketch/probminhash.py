@@ -60,12 +60,13 @@ def _tournament(items: torch.Tensor, winv: torch.Tensor, valid: torch.Tensor,
 
 
 def probminhash_signatures(items: torch.Tensor, weights: torch.Tensor,
-                           m: int, seed: int = 0):
+                           m: int, heavy_cap: int = 0, seed: int = 0):
     """Signatures from slot-aligned (item, weight) pairs.
 
     items int32/int64 [n, P]; weights integer [n, P] (0 marks padding;
-    duplicate occurrences may all carry the item's weight).  Returns
-    (sig [n, m], empty bool[n])."""
+    duplicate occurrences may all carry the item's weight).  ``heavy_cap``
+    is accepted and ignored, as in the JAX version: the tournament is exact
+    for any multiplicity.  Returns (sig [n, m], empty bool[n])."""
     valid = weights > 0
     winv = 1.0 / weights.clamp(min=1).to(torch.float32)
     return _tournament(items, winv, valid, m, seed)
@@ -104,10 +105,11 @@ def sort_with_multiplicities(items: torch.Tensor, valid: torch.Tensor):
 
 
 def probminhash_from_items(items: torch.Tensor, valid: torch.Tensor, m: int,
-                           seed: int = 0):
+                           heavy_cap: int = 0, seed: int = 0):
     """Signatures with the weights derived from the items themselves: the
     within-row multiplicity of each item (the per-read weighted histogram).
     The tournament runs on the sorted rows: same multiset, same signature.
+    ``heavy_cap`` is accepted and ignored, as in the JAX version.
     Returns (sig [n, m] in the items' dtype, empty bool[n])."""
     s, winv, is_real = sort_with_multiplicities(items, valid)
     return _tournament(s, winv, is_real, m, seed)

@@ -120,7 +120,8 @@ def jax_run(request):
     reads = batches_of_reads(k)
     table, snap = jax_stream(reads, k, coords, depth, grow_at, snapshot_at=1)
     return dict(cfg=STREAM_CONFIGS[request.param], reads=reads, snap=snap,
-                final=finalize_variants(j_stream.finalize, table))
+                final=finalize_variants(j_stream.finalize, table),
+                table=table)
 
 
 def test_stream_finalize_matches_jax(jax_run):
@@ -143,6 +144,33 @@ def test_jax_stream_continued_in_port(jax_run):
                          table=table, start=2)
     assert_same_final(finalize_variants(t_stream.finalize, table),
                       jax_run["final"])
+
+
+def test_finalize_phases_match_jax(jax_run):
+    """finalize(phases=dict): the JAX keys, added to what the dict holds;
+    the same records count; the same results as without the dict."""
+    k, coords, depth, grow_at = jax_run["cfg"]
+    jph = {"agg_s": 1.0, "other": 7}
+    j_stream.finalize(jax_run["table"], phases=jph)
+    table = torch_stream(jax_run["reads"], k, coords, depth, grow_at)
+    tph = {"agg_s": 1.0, "other": 7}
+    got = t_stream.finalize(table, phases=tph)
+    assert_same_final([got], jax_run["final"][:1])
+    assert_same_final([t_stream.finalize(table)], [got])
+    assert set(tph) == set(jph) == {"agg_s", "records", "xfer_s", "other"}
+    assert tph["records"] == jph["records"] == len(got[0]) > 0
+    assert tph["agg_s"] > 1.0 and tph["xfer_s"] >= 0.0 and tph["other"] == 7
+    # a second call adds to the same keys; a filter that keeps nothing
+    # copies nothing, so it adds no xfer_s (the JAX version returns early)
+    t_stream.finalize(table, min_count=1 << 30, phases=tph)
+    assert tph["records"] == len(got[0])
+    xfer = tph["xfer_s"]
+    t_stream.finalize(table, phases=tph)
+    assert tph["records"] == 2 * len(got[0]) and tph["xfer_s"] > xfer
+    empty = {}
+    t_stream.finalize(t_stream.StreamCountTable.create(
+        64, wide=k > 16, coords=coords, device="cpu"), phases=empty)
+    assert set(empty) == {"agg_s", "records"} and empty["records"] == 0
 
 
 def test_batch_entries_match_jax():
