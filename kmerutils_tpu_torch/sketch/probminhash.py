@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..ops import tournament
 from ..ops.bitops import M32
 from ..ops.tournament import slot_consts as _slot_consts  # noqa: F401
@@ -110,9 +111,13 @@ def probminhash_from_items(items: torch.Tensor, valid: torch.Tensor, m: int,
     within-row multiplicity of each item (the per-read weighted histogram).
     The tournament runs on the sorted rows: same multiset, same signature.
     ``heavy_cap`` is accepted and ignored, as in the JAX version.
-    Returns (sig [n, m] in the items' dtype, empty bool[n])."""
-    s, winv, is_real = sort_with_multiplicities(items, valid)
-    return _tournament(s, winv, is_real, m, seed)
+    Returns (sig [n, m] in the items' dtype, empty bool[n]).  Spans
+    ``sketch.weights`` and ``sketch.draw``, each over n x P positions."""
+    work, dev = items.numel(), items.device
+    with obs.span("sketch.weights", work, dev) as weights:
+        s, winv, is_real = sort_with_multiplicities(items, valid)
+    with obs.span("sketch.draw", work, dev, after=weights):
+        return _tournament(s, winv, is_real, m, seed)
 
 
 def probjaccard_pair(sig_a: torch.Tensor, sig_b: torch.Tensor):
