@@ -20,8 +20,10 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
 5. the slice: ``datasketcher`` on a seeded ONT-like FASTQ (10,000 reads,
    ~60 Mbases, k=8, m=200) and on a 1,000-read file with k=21, through the
    CLI entry point on ``cuda``; the dumps are read back and 64 sampled
-   reads of each are recomputed through the plain path on the card; the
-   kernel launch counters must show the kernels ran; the k=8 run is then
+   reads of each are recomputed through the plain path on the card (the
+   plain prefix ``kmer_prefix_ref``, not KP, and the plain tournament);
+   the launch counters of K1, K2 and KP, set to 0 before the two runs,
+   must show a launch a batch at least; the k=8 run is then
    repeated three times for its wall-time spread;
 6. K1/K2 timed with CUDA events against their plain versions at the row
    shapes of the paths (m=200): the bench shape (1024 reads x 6000 bases)
@@ -196,6 +198,18 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    ``phases=``: the same arrays, equal to phase 8's oracle, with
    ``agg_s``, ``records`` and ``xfer_s`` filled; the counters of K1 and K2
    (the block calls) and K4 (the ``finalize(phases=)`` call) must be > 0.
+16. KP (``ops/kmer_prefix.kmer_prefix``, csrc/kmers.cu: packed words to
+   valid, canonical, hashed items) vs its plain version on the card,
+   ``torch.equal`` on items and valid at k = 1, 8, 15, 16, 17, 21, 31, 32
+   with the Wang and the identity hash, at the bench shape (1024 x 6000),
+   the block shape (16,384 x 512), the tail batch (3 x 16,377) and a batch
+   with rows of length 0 and below k (``KP_SHAPES``; ragged lengths);
+   timed with CUDA events in turns (plain, kernel, kernel, plain) at the
+   bench shape (k=8 and k=21), the block and the tail shapes, with the
+   host time to enqueue one call, the profiler's device time (one KP
+   kernel a call and nothing else) and the bytes bound; the launch counter
+   must grow by one for each ``hashed_kmers`` call and each
+   ``sketch_batch`` on the card.
 
 With ``--baseline ROOT`` (the tree of another commit, e.g. unpacked from
 ``git archive`` into a git-ignored directory) the script runs phases 1-2,
@@ -512,6 +526,13 @@ def write_ont_fastq(path: str, rng, n_reads: int, n_with_n: int):
     return clean
 
 
+def plain_hashed(batch, k: int, hash_name: str = "wang"):
+    """``hashed_kmers`` through the plain prefix (``kmer_prefix_ref``, not
+    KP) on the batch's device: what the oracles on the card start from."""
+    from kmerutils_tpu_torch.ops import kmer_prefix as KP
+    return KP.kmer_prefix_ref(batch.words, batch.lengths, k, hash_name)
+
+
 def plain_signatures(torch, codes_list, k: int, m: int, dev):
     """Signatures of the given reads through the plain path on the card
     (same hashing and multiplicities, plain tournament), cut to u32 as the
@@ -519,14 +540,13 @@ def plain_signatures(torch, codes_list, k: int, m: int, dev):
     from kmerutils_tpu_torch.base.sequence import pack_codes
     from kmerutils_tpu_torch.ops import tournament as T
     from kmerutils_tpu_torch.sketch import probminhash
-    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
     L = max(c.size for c in codes_list)
     codes = np.zeros((len(codes_list), L), np.uint8)
     lengths = np.array([c.size for c in codes_list], np.int32)
     for i, c in enumerate(codes_list):
         codes[i, : c.size] = c
     batch = pack_codes(codes, lengths, device=dev)
-    items, valid = hashed_kmers(batch, k)
+    items, valid = plain_hashed(batch, k)
     s, winv, is_real = probminhash.sort_with_multiplicities(items, valid)
     winv = torch.where(is_real, winv, 0.0).contiguous()
     if k <= 16:
@@ -543,6 +563,7 @@ def slice_runs(torch, rng, tmp: str, card: str, dev,
     phase("5 the slice: datasketcher on cuda")
     from kmerutils_tpu_torch.cli import datasketcher
     from kmerutils_tpu_torch.io import fastx, formats
+    from kmerutils_tpu_torch.ops import kmer_prefix as KP
     from kmerutils_tpu_torch.ops import tournament as T
     fq8 = os.path.join(tmp, "ont10k.fastq")
     fq21 = os.path.join(tmp, "ont1k.fastq")
@@ -561,20 +582,26 @@ def slice_runs(torch, rng, tmp: str, card: str, dev,
 
     # --- the main path: counts from 0 to what the two CLI runs launched ---
     T.launches_u32 = T.launches_u64 = 0
+    KP.launches_prefix = 0
     t0 = time.perf_counter()
     rc8 = datasketcher.main(["-f", fq8, "-s", "200", "-k", "8", "-d", dump8,
                              "--device", str(dev)])
     wall8 = time.perf_counter() - t0
     rc21 = datasketcher.main(["-f", fq21, "-s", "200", "-k", "21", "-d",
                               dump21, "--device", str(dev)])
-    launches = {"u32": T.launches_u32, "u64": T.launches_u64}
+    launches = {"u32": T.launches_u32, "u64": T.launches_u64,
+                "kp": KP.launches_prefix}
     # -----------------------------------------------------------------------
-    print(f"launches: K1 {launches['u32']}, K2 {launches['u64']}", flush=True)
+    print(f"launches: K1 {launches['u32']}, K2 {launches['u64']}, KP "
+          f"{launches['kp']}", flush=True)
     check(rc8 == 0 and rc21 == 0, "datasketcher returned non-zero")
     check(launches["u32"] >= n_batches8,
           f"K1 launched {launches['u32']} < {n_batches8} batches")
     check(launches["u64"] >= n_batches21,
           f"K2 launched {launches['u64']} < {n_batches21} batches")
+    check(launches["kp"] >= n_batches8 + n_batches21,
+          f"KP launched {launches['kp']} < {n_batches8 + n_batches21} "
+          f"batches")
 
     for dump, clean, k in ((dump8, clean8, 8), (dump21, clean21, 21)):
         with open(dump, "rb") as f:
@@ -687,8 +714,7 @@ def halves(torch, s):
 
 def block_rows(torch, batch, k: int, bs: int = 512):
     """The sorted block rows and weights the -b path gives K1."""
-    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
-    items, valid = hashed_kmers(batch, k)
+    items, valid = plain_hashed(batch, k)
     pad = -items.shape[1] % bs
     items = torch.nn.functional.pad(items, (0, pad)).reshape(-1, bs)
     valid = torch.nn.functional.pad(valid, (0, pad)).reshape(-1, bs)
@@ -699,8 +725,7 @@ def collection_row(torch, batch, k: int = 21):
     """sketch_collection's one row for K2: the batch's distinct k-mers as
     lo / hi halves [1, n], weighted by 1 / their counts."""
     from kmerutils_tpu_torch.count import exact
-    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
-    items, valid = hashed_kmers(batch, k)
+    items, valid = plain_hashed(batch, k)
     kc = exact.count_from_values(
         torch.where(valid.reshape(-1), items.reshape(-1), -1))
     w = torch.where(kc.keys != -1, kc.counts, 0)[None, :]
@@ -715,13 +740,12 @@ def tournament_shapes(torch, rng, bench, collection: bool = False):
     k=21 (K2); the block rows of an 8 Mi-base batch (512 random reads x
     16,384 -> 16,384 x 512, k=8); a tail batch of three 16,384-base reads
     (k=8); with ``collection``, sketch_collection's row of the bench
-    batch."""
-    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
-    yield "bench_k8", sorted_rows(torch, *hashed_kmers(bench, 8))
-    s, w = sorted_rows(torch, *hashed_kmers(bench, 21))
+    batch (items from the plain prefix)."""
+    yield "bench_k8", sorted_rows(torch, *plain_hashed(bench, 8))
+    s, w = sorted_rows(torch, *plain_hashed(bench, 21))
     yield "bench_k21", (*halves(torch, s), w)
     yield "block_k8", block_rows(torch, random_batch(rng, 512, 16384), 8)
-    yield "tail_k8", sorted_rows(torch, *hashed_kmers(
+    yield "tail_k8", sorted_rows(torch, *plain_hashed(
         random_batch(rng, 3, 16384), 8))
     if collection:
         yield "collection_k21", collection_row(torch, bench)[0]
@@ -1065,15 +1089,17 @@ def merge_check(torch, fn, ref, args, what: str):
     return bad, err, want
 
 
-def merge_profile(torch, fn, iters: int = 10) -> dict:
-    """``iters`` calls of ``fn`` (a merge_sorted or merge_fold call) under
-    torch.profiler: device ms per call and the calls' device events.  A
-    call launches one merge kernel and nothing else (no copy, no memset),
-    so every device event must be a merge kernel and each is one call;
+def merge_profile(torch, fn, iters: int = 10,
+                  kernel: str = "merge_kernel") -> dict:
+    """``iters`` calls of ``fn`` (a merge_sorted or merge_fold call, or
+    another wrapper of one ``kernel``) under torch.profiler: device ms per
+    call and the calls' device events.  A call launches one such kernel
+    and nothing else (no copy, no memset), so every device event must be
+    that kernel and each is one call;
     the profiler can lose the first events of a session late in a long
     process (see k7_profile), so the time is the mean of the last half.
-    A session that recorded no device event at all is run again, at most
-    twice."""
+    A session that recorded fewer than half of the calls is run again, at
+    most twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1087,13 +1113,15 @@ def merge_profile(torch, fn, iters: int = 10) -> dict:
         evs = sorted((ev for ev in prof.events()
                       if ev.device_type == DeviceType.CUDA),
                      key=lambda ev: ev.time_range.start)
-        if evs:
+        if len(evs) >= iters // 2:
             break
+        print(f"the profiler kept {len(evs)} {kernel} events of {iters} "
+              f"calls; profiling again", flush=True)
     names = {short_name(ev.name) for ev in evs}
-    check(all(n.startswith("merge_kernel") for n in names)
+    check(all(n.startswith(kernel) for n in names)
           and iters // 2 <= len(evs) <= iters,
-          f"merge profile: {len(evs)} device events of {names} for {iters} "
-          f"calls, want one merge kernel per call")
+          f"{kernel} profile: {len(evs)} device events of {names} for "
+          f"{iters} calls, want one {kernel} per call")
     last = evs[-(iters // 2):]
     return {"device_ms": sum(ev.time_range.elapsed_us()
                              for ev in last) / 1e3 / len(last),
@@ -1879,14 +1907,13 @@ def plain_blocks(torch, codes_list, k: int, m: int, bs: int, dev):
     from kmerutils_tpu_torch.base.sequence import pack_codes
     from kmerutils_tpu_torch.ops import tournament as T
     from kmerutils_tpu_torch.sketch import probminhash
-    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
     L = max(c.size for c in codes_list)
     codes = np.zeros((len(codes_list), L), np.uint8)
     for i, c in enumerate(codes_list):
         codes[i, : c.size] = c
     batch = pack_codes(codes, np.array([c.size for c in codes_list],
                                        np.int32), device=dev)
-    items, valid = hashed_kmers(batch, k)
+    items, valid = plain_hashed(batch, k)
     n, P = items.shape
     nb = -(-P // bs)
     pad = torch.nn.functional.pad
@@ -2119,14 +2146,15 @@ FAMILIES = ("SUPER", "SUPER2", "OPTDENS", "REVOPTDENS", "HLL")
 
 class plain_kernels:
     """Within the block, every kernel wrapper of the sketch path (K1, K2,
-    G1, G2) runs its plain version on the card: the plain path."""
+    G1, G2, KP) runs its plain version on the card: the plain path."""
 
     def __enter__(self):
+        from kmerutils_tpu_torch.ops import kmer_prefix as KP
         from kmerutils_tpu_torch.ops import sketch_grid as G
         from kmerutils_tpu_torch.ops import tournament as T
         self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
             (T, "weighted_tournament"), (T, "weighted_tournament_u64"),
-            (G, "grid_min"), (G, "grid_max"))]
+            (G, "grid_min"), (G, "grid_max"), (KP, "kmer_prefix"))]
         for mod, name, _ in self.saved:
             setattr(mod, name, getattr(mod, name + "_ref"))
         return self
@@ -2277,13 +2305,12 @@ def grid_timed_shapes(torch, bench, m: int = 200):
     """(name, G1's inputs, G2's inputs) at phase 11's timed shapes: the
     bench batch at k=8 and k=21 (every 97th row from the 6th all-invalid)
     and sketch_collection's one row (k=21)."""
-    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
     for k in (8, 21):
-        items, valid = hashed_kmers(bench, k)
+        items, valid = plain_hashed(bench, k)
         valid = valid.clone()
         valid[5::97] = False
         yield (f"bench_k{k}", *grid_args(torch, items, valid, m))
-    items, valid = hashed_kmers(bench, 21)
+    items, valid = plain_hashed(bench, 21)
     yield ("collection_k21", *grid_args(torch, items.reshape(1, -1),
                                         valid.reshape(1, -1), m))
 
@@ -3766,6 +3793,103 @@ def interface_gaps(torch, rng, card: str, tmp: str, dev, ont_fq: str,
 
 
 # ---------------------------------------------------------------------------
+# phase 16: KP, the k-mer prefix of the sketches
+# ---------------------------------------------------------------------------
+
+KP_SOURCE = "kmerutils_tpu_torch/csrc/kmers.cu"
+KP_JAX = "kmerutils_tpu/sketch/jaccard.py:37"
+KP_KS = (1, 8, 15, 16, 17, 21, 31, 32)
+# (name, rows, width, lengths: "full", "ragged" or explicit)
+KP_SHAPES = (("bench", 1024, 6000, "ragged"), ("block", 16384, 512, "full"),
+             ("tail", 3, 16377, "ragged"),
+             ("short_rows", 8, 40, (0, 1, 7, 15, 16, 20, 31, 40)))
+KP_TIMED = (("bench", 8), ("bench", 21), ("block", 8), ("tail", 8))
+
+
+def kp_batch(rng, n: int, L: int, lengths, dev="cuda"):
+    """A packed batch of n random reads of width L: every read full, ragged
+    (uniform in [0, L] with a full read, an empty one and one of 7 bases),
+    or of the lengths given."""
+    from kmerutils_tpu_torch.base.sequence import pack_codes
+    codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
+    if lengths == "full":
+        lens = np.full(n, L, np.int32)
+    elif lengths == "ragged":
+        lens = rng.integers(0, L + 1, size=n).astype(np.int32)
+        lens[:3] = (L, 0, 7)[:n]
+    else:
+        lens = np.asarray(lengths, np.int32)
+    return pack_codes(codes, lens, device=dev)
+
+
+def kmer_prefix_phase(torch, rng, card: str, dev="cuda") -> dict:
+    """Phase 16: KP exact against its plain version at ``KP_SHAPES`` for
+    every k of ``KP_KS`` and both hashes, timed at ``KP_TIMED``, and its
+    launch counter against the calls."""
+    from kmerutils_tpu_torch import roofline
+    from kmerutils_tpu_torch.ops import kmer_prefix as KP
+    from kmerutils_tpu_torch.sketch.jaccard import Sketcher, hashed_kmers
+    from kmerutils_tpu_torch.sketch.params import SeqSketcherParams
+    phase("16 KP (the k-mer prefix) vs plain (exact) and timing")
+    t_phase = time.perf_counter()
+    batches = {name: kp_batch(rng, n, L, lens, dev)
+               for name, n, L, lens in KP_SHAPES}
+    n_checks = 0
+    for name, b in batches.items():
+        for k in KP_KS:
+            for h in ("wang", "identity"):
+                got = KP.kmer_prefix(b.words, b.lengths, k, h)
+                want = KP.kmer_prefix_ref(b.words, b.lengths, k, h)
+                sync(torch, dev)
+                check(same(torch, got, want),
+                      f"KP != plain at {name} {tuple(b.words.shape)}, k={k}, "
+                      f"{h}: {int((got[0] != want[0]).sum())} items, "
+                      f"{int((got[1] != want[1]).sum())} valid differ")
+                n_checks += 1
+        del got, want
+    print(f"KP: {n_checks} cases equal to the plain version", flush=True)
+    out = {"checks": n_checks, "shapes": {}}
+    for name, k in KP_TIMED:
+        b = batches[name]
+        kern = functools.partial(KP.kmer_prefix, b.words, b.lengths, k)
+        plain = functools.partial(KP.kmer_prefix_ref, b.words, b.lengths, k)
+        ms, pms, runs = turns(torch, kern, plain, iters=100)
+        n, W = b.words.shape
+        P = KP.positions(b.words, k)
+        nbytes = n * W * 4 + n * 4 + n * P * ((4 if k <= 16 else 8) + 1)
+        bound = roofline.bound(nbytes)
+        r = {"timing": f"kp_{name}_k{k}", "rows": n, "P": P,
+             "ms_plain_kern_kern_plain": runs,
+             "enqueue_ms": enqueue_ms(torch, kern, iters=200),
+             "device_ms": merge_profile(torch, kern, 50,
+                                        "kmer_prefix_kernel")["device_ms"],
+             "bytes": nbytes,
+             "bound_ms": bound[0], "bound_by": bound[1],
+             "bound_share": bound[0] / ms,
+             "gpos_per_s": n * P / ms / 1e6}
+        print(json.dumps({**r, "card": card}), flush=True)
+        out["shapes"][f"{name}_k{k}"] = {
+            "ms": ms, "plain_ms": pms, "bound_ms": bound[0],
+            "device_ms": r["device_ms"], "enqueue_ms": r["enqueue_ms"]}
+    bench = batches["bench"]
+    before = KP.launches_prefix
+    for k in KP_KS:
+        hashed_kmers(bench, k)
+    sk = Sketcher(SeqSketcherParams(kmer_size=8, sketch_size=200))
+    sk.sketch_batch(bench)
+    sync(torch, dev)
+    calls = len(KP_KS) + 1
+    check(KP.launches_prefix - before == calls,
+          f"KP launches {KP.launches_prefix - before} for {calls} calls")
+    out["launches"] = KP.launches_prefix - before
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"timing": "phase16_s", "card": card,
+                      "launches": out["launches"],
+                      "total": out["seconds"]}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --baseline: K1-K7 and G1/G2 of this tree against another tree's, in
 # turns
 # ---------------------------------------------------------------------------
@@ -4099,6 +4223,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             interface_gaps(torch, rng, card, tmp, "cuda", fq8, clean8,
                            os.path.join(tmp, "bact.fastq"), oracle16)
+            torch.cuda.empty_cache()
+            kp = kmer_prefix_phase(torch, rng, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4174,6 +4300,17 @@ def main(argv=None) -> int:
                "merge_sorted": "K5", "grid_max": "G2"}.get(kern["name"])
         if key:
             kern["launches_phase13"] = p13["launches"][key]
+    kp_bench = kp["shapes"]["bench_k8"]
+    kernels.append({
+        "name": "kmer_prefix", "route": "cuda", "source": KP_SOURCE,
+        "replaces": None, "jax_function": KP_JAX,
+        "launches": launches["kp"], "launches_phase16": kp["launches"],
+        "mismatches": 0, "max_abs_err": 0,
+        "ms": kp_bench["ms"], "plain_ms": kp_bench["plain_ms"],
+        "bound_ms": kp_bench["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "device_ms": kp_bench["device_ms"],
+        **{f"{k}_each_shape": {s: r[k] for s, r in kp["shapes"].items()}
+           for k in ("ms", "plain_ms", "bound_ms", "device_ms")}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

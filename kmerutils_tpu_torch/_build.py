@@ -76,6 +76,7 @@ def _declare(lib) -> None:
                                       vp]
     declare_sketch(lib)
     declare_merge(lib)
+    declare_kmers(lib)
 
 
 def declare_sketch(lib) -> None:
@@ -90,6 +91,16 @@ def declare_sketch(lib) -> None:
     lib.launch_grid_max.restype = ci
     lib.launch_grid_max.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, ci, ll,
                                     vp]
+
+
+def declare_kmers(lib) -> None:
+    """argtypes of csrc/kmers.cu's entry points."""
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.kmer_prefix_config.restype = ci
+    lib.kmer_prefix_config.argtypes = [ctypes.POINTER(ci)]
+    lib.launch_kmer_prefix.restype = ci
+    lib.launch_kmer_prefix.argtypes = [vp, vp, vp, vp, ll, ll, ll, ci, ci, ll,
+                                       vp]
 
 
 def declare_merge(lib) -> None:

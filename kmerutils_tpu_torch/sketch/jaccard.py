@@ -17,11 +17,10 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..base import kmer as kmer_mod
 from ..base.sequence import ReadBatch
 from ..count import exact
-from ..ops.bitops import M32, u32_to_i32
-from ..ops.rng import wang_hash32, wang_hash64
+from ..ops import kmer_prefix
+from ..ops.bitops import M32
 from . import densminhash, probminhash, setsketch, superminhash
 from .params import SeqSketcherParams, SketchAlgo
 from .setsketch import SetSketchParams
@@ -29,18 +28,13 @@ from .setsketch import SetSketchParams
 
 def hashed_kmers(batch: ReadBatch, k: int, hash_name: str = "wang"):
     """(items [n, P], valid bool[n, P]): the canonical k-mers through the
-    k-mer hash; int32 (u32) items for k <= 16, int64 (u64) items above.
-    Span ``sketch.kmers``, over n x P positions."""
+    k-mer hash; int32 (u32) items for k <= 16, int64 (u64) items above
+    (ops/kmer_prefix.py, kernel KP on the card).  Span ``sketch.kmers``, over
+    n x P positions."""
     work = batch.n_reads * max(batch.max_len - k + 1, 1)
     with obs.span("sketch.kmers", work, batch.device):
-        can, valid, _ = kmer_mod.canonical_kmers(batch, k)
-        if hash_name == "wang":
-            items = wang_hash32(can) if k <= 16 else wang_hash64(can)
-        elif hash_name == "identity":
-            items = can
-        else:
-            raise ValueError(f"unknown kmer hash {hash_name}")
-        return (u32_to_i32(items) if k <= 16 else items), valid
+        return kmer_prefix.kmer_prefix(batch.words, batch.lengths, k,
+                                       hash_name)
 
 
 def hashed_weighted_kmers(batch: ReadBatch, k: int, hash_name: str = "wang"):
