@@ -190,10 +190,16 @@ def _shifts(dtype, device) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class ReadBatch:
     """words int32[n, W] (u32 bit patterns), lengths int32[n]; both on one
-    device.  Padding bases are 0 ('A') and masked through ``lengths``."""
+    device.  Padding bases are 0 ('A') and masked through ``lengths``.
+
+    ``host_lengths``, the same lengths in host memory, is kept by
+    :meth:`to` when the batch was moved from the host, so that a caller
+    can size what depends on the lengths without reading the device
+    (count/stream.batch_entries); None otherwise."""
 
     words: torch.Tensor
     lengths: torch.Tensor
+    host_lengths: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -209,8 +215,11 @@ class ReadBatch:
         return (self.words.shape[1] - 1) * BASES_PER_WORD
 
     def to(self, device, non_blocking: bool = False) -> "ReadBatch":
+        host = (self.lengths if self.lengths.device.type == "cpu"
+                else self.host_lengths)
         return ReadBatch(self.words.to(device, non_blocking=non_blocking),
-                         self.lengths.to(device, non_blocking=non_blocking))
+                         self.lengths.to(device, non_blocking=non_blocking),
+                         host)
 
     def codes(self) -> torch.Tensor:
         """Per-base 2-bit codes, uint8[n_reads, W * 16]."""

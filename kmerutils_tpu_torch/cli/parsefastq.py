@@ -13,8 +13,9 @@ Always computes the base / read-length statistics ("bases.histo",
 key order); unicity writes <file>.once_kmer.bin with each unique k-mer's
 (read, position) in scan order.  Both files and the histograms are
 byte-identical to the JAX CLI's.  Each batch's k-mers are sorted on the
-device and folded into the streaming count table (count/stream.py, kernels
-K3-K5); growth, staging and disk spill follow the JAX CLI.  ``-t`` is
+device and folded into the streaming count table by
+``count/stream.StreamCounter`` (kernels K3-K5); growth, staging and disk
+spill follow the JAX CLI.  ``-t`` is
 accepted for interface parity.
 """
 
@@ -98,91 +99,49 @@ def main(argv=None):
             print(f"kmer size {k} unsupported (14-max u32 / 16 / 17..32)",
                   file=sys.stderr)
             return 1
-        from ..count import spill as spill_mod
         from ..count import stream
         # --unique needs first-occurrence coordinates; --count does not
         coords = not args.count
-        cap_max = args.capacity or _auto_capacity(args.filename, coords)
-        # start small and GROW toward cap_max when the table's grow_hint
-        # (raised right after a compaction, when the fresh distinct count
-        # is within the fold headroom of capacity) says so
-        capacity = min(cap_max, 1 << 26)
-        folder = stream.StagedFolder(
-            stream.StreamCountTable.create(capacity, wide=k > 16,
-                                           coords=coords, device=device))
-        spill_store = None
-        pending: list = []   # hints of the folds not acted on yet
+        counter = stream.StreamCounter(
+            k, coords=coords,
+            capacity_max=args.capacity or _auto_capacity(args.filename,
+                                                         coords),
+            device=device, spill=not args.no_spill)
         for batch, idx in fastx.read_batches_overlapped(
                 args.filename, device=device, batch_reads=args.batch_reads,
                 stats=st):
             dist.record_batch(batch)
             # read numbers come from idx: the port's batches are always
             # length-sorted, so rows are not in file order
-            run = stream.batch_entries(batch, k, idx, coords=coords)
-            if not folder.push(run):
-                continue
-            pending.append(folder.table.grow_hint)
-            if len(pending) > 1:
-                # act on the PREVIOUS fold's hint, as the JAX CLI does: the
-                # fold headroom (stream.fold) is sized for this lag
-                if pending.pop(0):
-                    if capacity < cap_max:
-                        capacity = min(capacity * 8, cap_max)
-                        folder.table = stream.grow(folder.table, capacity)
-                        # hints still queued were computed against the OLD
-                        # capacity
-                        pending.clear()
-                    elif not args.no_spill:
-                        # growth ladder topped out: ship the table's
-                        # aggregated runs to a disk segment, restart empty
-                        if spill_store is None:
-                            spill_store = spill_mod.SpillStore(
-                                wide=k > 16, coords=coords)
-                        folder.table = spill_store.spill_table(folder.table)
-                        pending.clear()
-        table = folder.flush()
+            counter.add(batch, idx)
         bpc = 1 if args.counter_size <= 8 else 2
-        if spill_store is not None and spill_store.n_segments:
-            # the final table joins the segments; the k-way merge
-            # re-aggregates across epochs in bounded memory
-            spill_store.spill_table(table)
-            dropped = spill_store.n_dropped
-            if args.count:
-                out = args.filename + ".multi_kmer.bin"
+        if args.count:
+            blocks, dropped = counter.finish(
+                min_count=2, count_clamp=(1 << (8 * bpc)) - 1)
+            out = args.filename + ".multi_kmer.bin"
+            if counter.n_segments:
                 with formats.MultipleKmerDumpWriter(out, k, bpc) as w:
-                    for mk, mc, _mr, _mp in spill_store.merge_stream():
+                    for mk, mc, _mr, _mp in blocks:
                         w.write(mk, mc)
                 print(f"dumped {w.n} multiple kmers to {out} "
-                      f"({spill_store.n_segments} spill segments merged)")
+                      f"({counter.n_segments} spill segments merged)")
             else:
-                uk, ur, up = [], [], []
-                for mk, mc, mr, mp in spill_store.merge_stream():
-                    sel = mc == 1
-                    uk.append(mk[sel])
-                    ur.append(mr[sel])
-                    up.append(mp[sel])
-                keys = np.concatenate(uk)
-                out = args.filename + ".once_kmer.bin"
-                _write_unique(out, k, keys, np.concatenate(ur),
-                              np.concatenate(up))
-                print(f"dumped {len(keys)} unique kmers to {out} "
-                      f"({spill_store.n_segments} spill segments merged)")
-            spill_store.close()
-        elif args.count:
-            keys, counts, _, _, dropped = stream.finalize(
-                table, min_count=2, count_clamp=(1 << (8 * bpc)) - 1)
-            out = args.filename + ".multi_kmer.bin"
-            n = formats.write_multiple_kmer_dump(out, k, keys, counts,
-                                                 bytes_per_count=bpc)
-            print(f"dumped {n} multiple kmers to {out}")
+                [(keys, counts, _, _)] = blocks
+                n = formats.write_multiple_kmer_dump(out, k, keys, counts,
+                                                     bytes_per_count=bpc)
+                print(f"dumped {n} multiple kmers to {out}")
         else:
-            keys, _, frn, fps, dropped = stream.finalize(table, 1, 1)
+            blocks, dropped = counter.finish(1, 1)
+            keys, frn, fps = (np.concatenate(a) for a in
+                              zip(*[(b[0], b[2], b[3]) for b in blocks]))
             out = args.filename + ".once_kmer.bin"
             _write_unique(out, k, keys, frn, fps)
-            print(f"dumped {len(keys)} unique kmers to {out}")
+            merged = (f" ({counter.n_segments} spill segments merged)"
+                      if counter.n_segments else "")
+            print(f"dumped {len(keys)} unique kmers to {out}{merged}")
         if dropped:
             print(f"WARNING: {dropped} entries dropped past capacity "
-                  f"{capacity} (raise --capacity or drop --no-spill)",
+                  f"{counter.capacity} (raise --capacity or drop --no-spill)",
                   file=sys.stderr)
     else:
         for batch, _idx in fastx.read_batches_overlapped(

@@ -41,6 +41,7 @@ import time
 import numpy as np
 import torch
 
+from .. import obs
 from ..base import kmer as kmer_mod
 from ..base.sequence import ReadBatch
 from ..ops import merge
@@ -103,6 +104,23 @@ class StreamCountTable:
                  if coords else None))
 
 
+def _compress(valid: torch.Tensor, n_valid: int, *arrays):
+    """The entries of each 1-D array where ``valid`` is True, in order,
+    given their number ``n_valid`` on the host: one scan and a scatter an
+    array, with no read of the device (boolean indexing waits for the
+    count).  Invalid entries land in a spare last slot, then cut off.  On
+    the CPU ``n_valid`` is checked against the mask."""
+    if valid.device.type == "cpu" and int(valid.sum()) != n_valid:
+        raise ValueError(f"{n_valid} valid positions from the host lengths,"
+                         f" {int(valid.sum())} in the batch")
+    dst = torch.where(valid, torch.cumsum(valid, 0) - 1, n_valid)
+    outs = []
+    for a in arrays:
+        o = torch.empty(n_valid + 1, dtype=a.dtype, device=a.device)
+        outs.append(o.scatter_(0, dst, a)[:n_valid])
+    return outs
+
+
 def batch_entries(batch: ReadBatch, k: int, read_indices,
                   coords: bool = False):
     """One batch's sorted run for :func:`fold`: (key, crd) with one entry
@@ -110,33 +128,52 @@ def batch_entries(batch: ReadBatch, k: int, read_indices,
     implicit).  ``crd`` is None without coordinates, else read_num << 32 |
     pos with read_num = ``read_indices[row]`` (the batch's map from rows to
     read numbers in file order, io/fastx.read_batches).
+
+    The valid positions number the sum over rows of max(length - k + 1,
+    0), counted from ``batch.host_lengths`` (a batch moved from the host,
+    as ingest moves it) with no read of the device; a batch made on the
+    device without them costs one read of its lengths.  Span
+    ``count.entries``, over rows x positions.
     """
-    can, valid, _ = kmer_mod.canonical_kmers(batch, k)
-    p = can.shape[1]
-    wide = k > 16
-    flat_valid = valid.reshape(-1)
-    keys = can.reshape(-1)[flat_valid]
-    # int64 carriers: u32 keys sort as they are, u64 bit patterns flipped
-    skeys = flip64(keys) if wide else keys
-    crd = None
-    if coords:
-        skeys, perm = torch.sort(skeys, stable=True)
-        flat = flat_valid.nonzero()[:, 0][perm]
-        rows = torch.as_tensor(np.asarray(read_indices, np.int64),
-                               device=can.device)
-        crd = (rows[flat // p] << 32) | (flat % p)
-    else:
-        skeys = torch.sort(skeys).values
-    key = flip64(skeys) if wide else skeys.to(torch.int32)
+    host = (batch.host_lengths if batch.host_lengths is not None
+            else batch.lengths.cpu())
+    n_valid = int((host.to(torch.int64) - (k - 1)).clamp_(min=0).sum())
+    work = batch.n_reads * max(batch.max_len - k + 1, 1)
+    with obs.span("count.entries", work, batch.device):
+        can, valid, _ = kmer_mod.canonical_kmers(batch, k)
+        p = can.shape[1]
+        wide = k > 16
+        keys, *at = _compress(valid.reshape(-1), n_valid, can.reshape(-1), *(
+            [torch.arange(valid.numel(), device=can.device)]
+            if coords else []))
+        # int64 carriers: u32 keys sort as they are, u64 bit patterns
+        # flipped
+        skeys = flip64(keys) if wide else keys
+        crd = None
+        if coords:
+            skeys, perm = torch.sort(skeys, stable=True)
+            flat = at[0][perm]
+            rows = torch.as_tensor(np.asarray(read_indices, np.int64),
+                                   device=can.device)
+            crd = (rows[flat // p] << 32) | (flat % p)
+        else:
+            skeys = torch.sort(skeys).values
+        key = flip64(skeys) if wide else skeys.to(torch.int32)
     return key, crd
 
 
 def compact(table: StreamCountTable) -> StreamCountTable:
     """Aggregate the table's runs (kernel K4): ``used`` becomes the
     distinct count.  Never filters by count range: mid-stream compaction
-    must keep every run (finalize applies lo/hi on its own aggregation)."""
-    key, cnt, crd, n_live = merge.aggregate_fold(table.key, table.cnt,
-                                                 table.crd, table.used)
+    must keep every run (finalize applies lo/hi on its own aggregation).
+    Span ``count.compact`` (entries in plus out), counter
+    ``count.compactions`` (the distinct count)."""
+    with obs.span("count.compact", table.used, table.device) as sp:
+        key, cnt, crd, n_live = merge.aggregate_fold(table.key, table.cnt,
+                                                     table.crd, table.used)
+        if sp is not None:
+            sp.work += n_live
+    obs.count("count.compactions", n_live)
     return dataclasses.replace(table, key=key, cnt=cnt, crd=crd, used=n_live,
                                last_distinct=n_live)
 
@@ -145,7 +182,9 @@ def fold(table: StreamCountTable, run) -> StreamCountTable:
     """Merge one sorted run (from :func:`batch_entries` or a StagedFolder
     merge) into the table; compacts first when occupancy approaches
     capacity or pending duplicates pass the amortized bound.  The policy
-    is the JAX fold's, over the run's length."""
+    is the JAX fold's, over the run's length.  Span ``count.fold`` around
+    K3 (entries in plus out); counters ``count.folds`` (the run's entries)
+    and ``count.used`` (the table's entries after it)."""
     b_key, b_crd = run
     nb = b_key.numel()
     S = table.capacity
@@ -168,9 +207,14 @@ def fold(table: StreamCountTable, run) -> StreamCountTable:
         table = compact(table)
         # table.used is now the true DISTINCT count
         hint = int(table.used + nb > S - headroom)
-    key, cnt, crd, n_out = merge.merge_fold(table.key, table.cnt, table.crd,
-                                            table.used, b_key, b_crd, S)
-    dropped = max(table.used + nb - S, 0)
+    n_in = table.used + nb
+    with obs.span("count.fold", n_in + min(n_in, S), table.device):
+        key, cnt, crd, n_out = merge.merge_fold(table.key, table.cnt,
+                                                table.crd, table.used, b_key,
+                                                b_crd, S)
+    obs.count("count.folds", nb)
+    obs.count("count.used", n_out)
+    dropped = max(n_in - S, 0)
     return dataclasses.replace(table, key=key, cnt=cnt, crd=crd, used=n_out,
                                n_dropped=table.n_dropped + dropped,
                                grow_hint=hint)
@@ -214,13 +258,17 @@ class StagedFolder:
     def push(self, run) -> bool:
         """Stage one batch's sorted run (from :func:`batch_entries`);
         returns True when a table fold was issued (the caller's cue to
-        read ``table.grow_hint``)."""
+        read ``table.grow_hint``).  Span ``count.stage`` around each K5
+        merge (entries in plus out)."""
         self._runs.append([0, run])
         while (len(self._runs) >= 2
                and self._runs[-1][0] == self._runs[-2][0]):
             lvl, b = self._runs.pop()
             _, a = self._runs.pop()
-            self._runs.append([lvl + 1, merge.merge_sorted(*a, *b)])
+            n = a[0].numel() + b[0].numel()
+            with obs.span("count.stage", 2 * n, b[0].device):
+                ab = merge.merge_sorted(*a, *b)
+            self._runs.append([lvl + 1, ab])
         if self._runs[0][0] >= self.depth:
             _, a = self._runs.pop()
             self.table = fold(self.table, a)
@@ -300,6 +348,128 @@ def finalize(table: StreamCountTable, min_count: int = 1,
         phases["xfer_s"] = phases.get("xfer_s", 0.0) \
             + (time.perf_counter() - t1)
     return keys, counts, rn, ps, int(table.n_dropped)
+
+
+class StreamCounter:
+    """The port's counting loop over a stream of batches already on the
+    device: :func:`batch_entries`, a :class:`StagedFolder`, the growth
+    ladder and the spill switch (what ``parsefastq kmer`` runs).
+
+    The table starts at ``min(capacity_max, 2^26)`` entries in ``folder``
+    (staged by capacity).  Each fold's ``grow_hint`` is acted on one fold
+    late (the headroom of :func:`fold` is sized for that lag): a raised
+    hint grows the table x8, up to ``capacity_max``; at ``capacity_max`` it
+    ships the table's aggregated runs to a disk segment (``count/spill.py``)
+    and restarts the table empty, or, with ``spill=False``, lets the
+    largest keys drop (counted in ``n_dropped``).
+
+    It reads the device at one ``.item()`` a compaction (the distinct
+    count); a spill and :meth:`finish` copy the table to the host.  A batch
+    made on the device, without ``host_lengths`` (``ReadBatch``), costs
+    one more read, of its lengths (:func:`batch_entries`); batches from
+    ingest carry them.  Nothing else waits for the device.
+
+    Spans (``obs.py``, off unless ``obs.sink`` is set): ``count.entries``
+    (k-mers, canonical form, validity, the batch sort; work: rows x
+    positions), ``count.stage`` (K5), ``count.fold`` (K3) and
+    ``count.compact`` (K4), each of the last three over entries in plus
+    entries out.  Counters (``obs.count``): ``count.folds`` (a fold's run
+    entries), ``count.used`` (the table's entries after each fold),
+    ``count.compactions`` (the distinct count after each), ``count.grows``
+    (the new capacity) and ``count.spills`` (the entries spilled).
+    """
+
+    def __init__(self, k: int, coords: bool = False,
+                 capacity_max: int = 1 << 26, device="cuda",
+                 spill: bool = True):
+        self.k = k
+        self.coords = coords
+        self.capacity_max = capacity_max
+        self.spill = spill
+        self.folder = StagedFolder(StreamCountTable.create(
+            min(capacity_max, 1 << 26), wide=k > 16, coords=coords,
+            device=device))
+        self.spill_store = None
+        self.n_segments = 0        # spill segments merged by finish
+        self.pushes = 0
+        self.grown_at: list = []   # (pushes, new capacity) of each growth
+        self._pending: list = []   # hints of the folds not acted on yet
+
+    @property
+    def table(self) -> StreamCountTable:
+        return self.folder.table
+
+    @property
+    def capacity(self) -> int:
+        return self.folder.table.capacity
+
+    def add(self, batch: ReadBatch, read_indices) -> None:
+        """Count one batch; ``read_indices`` maps its rows to read numbers
+        (used only with coordinates)."""
+        self.pushes += 1
+        run = batch_entries(batch, self.k, read_indices, coords=self.coords)
+        if not self.folder.push(run):
+            return
+        self._pending.append(self.folder.table.grow_hint)
+        if len(self._pending) < 2 or not self._pending.pop(0):
+            return
+        table = self.folder.table
+        if table.capacity < self.capacity_max:
+            capacity = min(table.capacity * 8, self.capacity_max)
+            self.folder.table = grow(table, capacity)
+            self.grown_at.append((self.pushes, capacity))
+            obs.count("count.grows", capacity)
+            # hints still queued were computed against the old capacity
+            self._pending.clear()
+        elif self.spill:
+            from .spill import SpillStore
+            if self.spill_store is None:
+                self.spill_store = SpillStore(wide=table.wide,
+                                              coords=self.coords)
+            obs.count("count.spills", table.used)
+            self.folder.table = self.spill_store.spill_table(table)
+            self._pending.clear()
+
+    def flush(self) -> StreamCountTable:
+        """Fold the staged remainder; returns the table."""
+        return self.folder.flush()
+
+    def finish(self, min_count: int = 1, max_count: int | None = None,
+               count_clamp: int | None = None):
+        """End of stream: :meth:`flush`, then the counts with ``min_count
+        <= count <= max_count``, clamped as :func:`finalize` clamps them.
+        Returns (blocks, n_dropped): blocks yields (keys, counts,
+        read_nums, positions) in ascending key order, one block from
+        :func:`finalize` when nothing was spilled; else the final table
+        joins the spill segments and blocks is their k-way merge (set
+        :attr:`n_segments`), which removes the segments once read."""
+        table = self.flush()
+        store = self.spill_store
+        if store is None or not store.n_segments:
+            keys, counts, rn, ps, dropped = finalize(table, min_count,
+                                                     max_count, count_clamp)
+            return iter([(keys, counts, rn, ps)]), dropped
+        store.spill_table(table)
+        self.n_segments = store.n_segments
+        return _merged(store, min_count, max_count, count_clamp), \
+            store.n_dropped
+
+
+def _merged(store, lo: int, hi: int | None, clamp: int | None):
+    """The spill store's merged blocks, filtered and clamped as
+    :func:`finalize` filters and clamps; closes the store at the end."""
+    try:
+        for keys, counts, rn, ps in store.merge_stream():
+            sel = counts >= lo
+            if hi is not None:
+                sel &= counts <= hi
+            keys, counts, rn, ps = keys[sel], counts[sel], rn[sel], ps[sel]
+            if clamp is not None:
+                dt = np.uint8 if clamp <= 0xFF else np.uint16
+                counts = np.minimum(counts, np.uint32(clamp)).astype(dt)
+            yield keys, counts, rn, ps
+    finally:
+        store.close()
 
 
 def table_from_jax(arrs, used: int, n_dropped: int, last_distinct: int,

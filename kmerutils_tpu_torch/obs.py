@@ -1,4 +1,4 @@
-"""Spans inside the program, off unless a sink is set.
+"""Spans and counters inside the program, off unless a sink is set.
 
 ``sink`` is the operator's way in: any object with ``add(name, t0_ns,
 t1_ns)`` and ``record(name, value)``.  While it is ``None`` (the default),
@@ -18,7 +18,12 @@ before this one opens, with nothing queued on the stream in between: its
 closing event, and its stream, serve as this span's opening ones, which
 saves a stream lookup and an event.  A span closes, and reports, when its
 body raises too.  ``work`` is the count the stage was handed (the sketch
-layer: rows x positions).
+layer: rows x positions; the count layer's merges: entries in plus
+entries out).
+
+:func:`count` hands the sink one reading of a counter of the program
+(``sink.record(name, value)``); it too does nothing while ``sink`` is
+``None``.
 """
 
 from __future__ import annotations
@@ -69,3 +74,10 @@ def span(name: str, work: int = 0, device: torch.device | None = None,
     if sink is None:
         return _NULL
     return _Span(sink, name, work, device, after)
+
+
+def count(name: str, value) -> None:
+    """One reading of counter ``name`` (``sink.record(name, value)``);
+    nothing while ``sink`` is None."""
+    if sink is not None:
+        sink.record(name, value)
