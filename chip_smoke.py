@@ -62,7 +62,9 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    bacterial-scale FASTQ (4.6 Mbase genome, 10,000 reads from both strands,
    6 % substitutions); every dump is compared in full with a numpy oracle
    computed from the generated reads; the launch counters must show K3, K4
-   and K5 ran; the --count run is repeated three times for its wall time;
+   and K5 ran, and KC once for each ``batch_entries`` call of the --count
+   and --unique runs; the --count run is repeated three times for its wall
+   time;
 9. K7 (compact_live) vs its plain version on the card, exact, with n_live
    equal: at every layout of ``live_layouts`` around its tile (n = 1 live
    and dead, tile - 1, tile, tile + 1, all live, all dead, 40 all-dead
@@ -210,6 +212,20 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    kernel a call and nothing else) and the bytes bound; the launch counter
    must grow by one for each ``hashed_kmers`` call and each
    ``sketch_batch`` on the card.
+17. KC (``ops/count_prefix.count_prefix``, csrc/kmers.cu: packed words to
+   the valid canonical keys compacted at the rows' offsets, in the sort's
+   form) vs its plain version on the card, ``torch.equal`` on keys and
+   indices at k = 1, 8, 15, 16, 17, 21, 31, 32 with and without
+   coordinates over ``KC_SHAPES`` (the count cell's shortest, median and
+   longest batch rows, a --unique -s 21 batch, the tail batch, rows of
+   length 0 to 40 and a batch of mostly empty rows), and
+   ``count/stream.batch_entries`` through it equal to the path before KC
+   (``plain_entries``); ``batch_entries`` of a batch with host lengths
+   under ``torch.cuda.set_sync_debug_mode("error")`` (no wait for the
+   device); the launch counter must grow by one a call; timed at
+   ``KC_TIMED`` with CUDA events in turns, the enqueue time, the
+   profiler's device time and the bytes bound, with ``batch_entries``'
+   device time by kernel beside it.
 
 With ``--baseline ROOT`` (the tree of another commit, e.g. unpacked from
 ``git archive`` into a git-ignored directory) the script runs phases 1-2,
@@ -240,6 +256,7 @@ package beside it, the script exits non-zero before printing either.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import importlib
 import importlib.util
@@ -1504,11 +1521,30 @@ def run_parsefastq(argv, cwd: str, main=None):
     return rc, out.getvalue(), err.getvalue(), wall
 
 
+@contextlib.contextmanager
+def counted_calls(module, name: str):
+    """``module.name`` replaced, inside the block, by a wrapper that counts
+    its calls in the list yielded (callers look the name up at each
+    call)."""
+    calls, real = [0], getattr(module, name)
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
 def counting_runs(torch, rng, tmp: str, card: str, dev,
                   n_reads: int = 10_000, genome_len: int = 4_600_000,
                   spill_reads: int = 2_000, spill_capacity: int = 4194304,
                   spill_batch_reads: int = 64):
     phase("8 the counting slice: parsefastq on cuda")
+    from kmerutils_tpu_torch.count import stream
+    from kmerutils_tpu_torch.ops import count_prefix as KC
     from kmerutils_tpu_torch.ops import merge as M
     fq = os.path.join(tmp, "bact.fastq")
     t0 = time.perf_counter()
@@ -1522,19 +1558,34 @@ def counting_runs(torch, rng, tmp: str, card: str, dev,
 
     # --- the main path: counts from 0 to what the --count run launched ---
     M.reset_launches()
-    rc, _, err, wall = run_parsefastq(base + ["--count", "-s", "16"], tmp)
+    KC.launches_count_prefix = 0
+    with counted_calls(stream, "batch_entries") as calls:
+        rc, _, err, wall = run_parsefastq(base + ["--count", "-s", "16"],
+                                          tmp)
     launches = {"K3": M.launches_fold, "K4": M.launches_aggregate,
-                "K5": M.launches_merge, "K6": M.launches_compact}
+                "K5": M.launches_merge, "K6": M.launches_compact,
+                "KC": KC.launches_count_prefix}
     # -----------------------------------------------------------------------
-    print(f"launches on the --count -s 16 path: {launches}", flush=True)
+    print(f"launches on the --count -s 16 path: {launches}, batch_entries "
+          f"calls {calls[0]}", flush=True)
     check(rc == 0 and "WARNING" not in err, "--count -s 16 failed or dropped")
     for name in ("K3", "K4", "K5"):
         check(launches[name] > 0, f"{name} was not launched on the CLI path")
+    check(launches["KC"] == calls[0] > 0,
+          f"KC launched {launches['KC']} times for {calls[0]} batches")
     oracle16 = check_count_dump(fq + ".multi_kmer.bin", reads, 16,
                                 "--count -s 16")
 
-    rc, _, err, _ = run_parsefastq(base + ["--unique", "-s", "21"], tmp)
+    KC.launches_count_prefix = 0
+    with counted_calls(stream, "batch_entries") as calls:
+        rc, _, err, _ = run_parsefastq(base + ["--unique", "-s", "21"], tmp)
+    launches["KC_unique21"] = KC.launches_count_prefix
+    print(f"KC launches on the --unique -s 21 path: "
+          f"{KC.launches_count_prefix} for {calls[0]} batches", flush=True)
     check(rc == 0 and "WARNING" not in err, "--unique -s 21 failed or dropped")
+    check(KC.launches_count_prefix == calls[0] > 0,
+          f"KC launched {KC.launches_count_prefix} times for {calls[0]} "
+          "batches on --unique -s 21")
     unique21 = check_unique_dump(fq + ".once_kmer.bin", reads, 21,
                                  "--unique -s 21")
 
@@ -3890,6 +3941,216 @@ def kmer_prefix_phase(torch, rng, card: str, dev="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: KC, the k-mer prefix of counting
+# ---------------------------------------------------------------------------
+
+KC_JAX = "kmerutils_tpu/count/stream.py:147"
+
+
+def uniform_lengths(lo: int, hi: int):
+    return lambda rng, n, L: rng.integers(lo, hi + 1, size=n)
+
+
+def sparse_lengths(rng, n: int, L: int):
+    """Most rows below 16 bases (no k-mer at k >= 16), one in 7 of any
+    length: runs of empty rows longer than KC's 1,024-output tile."""
+    lens = rng.integers(0, 16, size=n)
+    lens[::7] = rng.integers(0, L + 1, size=lens[::7].size)
+    lens[100:2200] = 0
+    return lens
+
+
+# (name, rows, width, lengths: "ragged", explicit, or a function of (rng,
+# n, width)): the count cell's batches (length-sorted reads of 500-16,000
+# bases, <= 8 Mi padded bases: its shortest, median and longest rows), a
+# --unique -s 21 batch (phase 8's reads are ~6.4 kb) and edges
+KC_SHAPES = (("cell_short", 16384, 512, uniform_lengths(480, 512)),
+             ("cell_median", 1600, 5232, uniform_lengths(4900, 5232)),
+             ("cell_long", 520, 16000, uniform_lengths(15000, 16000)),
+             ("unique", 1024, 6000, "ragged"),
+             ("tail", 3, 16377, "ragged"),
+             ("short_rows", 8, 40, (0, 1, 7, 15, 16, 20, 31, 40)),
+             ("mostly_empty", 4096, 64, sparse_lengths))
+# (shape, k, coordinates)
+KC_TIMED = (("cell_short", 16, False), ("cell_median", 16, False),
+            ("cell_long", 16, False), ("unique", 21, True))
+
+
+def kc_batch(rng, n: int, L: int, lengths, dev="cuda"):
+    if callable(lengths):
+        lengths = tuple(int(x) for x in lengths(rng, n, L))
+    return kp_batch(rng, n, L, lengths, dev)
+
+
+def plain_entries(torch, batch, k: int, idx, coords: bool):
+    """``batch_entries`` as the port computed it before KC: the canonical
+    k-mers of base/kmer.py, the valid ones in row order, one stable sort
+    of int64 carriers (u64 bit patterns flipped)."""
+    from kmerutils_tpu_torch.base import kmer
+    from kmerutils_tpu_torch.ops.bitops import flip64
+    can, valid, _ = kmer.canonical_kmers(batch, k)
+    p = can.shape[1]
+    flat = torch.nonzero(valid.reshape(-1)).squeeze(1)
+    keys = can.reshape(-1)[flat]
+    wide = k > 16
+    skeys, perm = torch.sort(flip64(keys) if wide else keys, stable=True)
+    key = flip64(skeys) if wide else skeys.to(torch.int32)
+    if not coords:
+        return key, None
+    flat = flat[perm]
+    rows = torch.as_tensor(np.asarray(idx, np.int64), device=can.device)
+    return key, (rows[flat // p] << 32) | (flat % p)
+
+
+def same_run(torch, got, want) -> bool:
+    return all((g is None and w is None) or (
+        g is not None and w is not None and torch.equal(g, w))
+        for g, w in zip(got, want))
+
+
+def device_split(torch, fn, calls: int, kernel: str) -> dict:
+    """``calls`` calls of ``fn`` under torch.profiler: device ms a call by
+    kernel name (short) and the number of ``kernel`` events, which must be
+    one a call (the profiler may lose early events late in a long
+    process: then at least half)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms: dict = {}
+    n_kernel = 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        name = short_name(ev.name)
+        ms[name] = ms.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+        n_kernel += name.startswith(kernel)
+    check(calls // 2 <= n_kernel <= calls,
+          f"{kernel}: {n_kernel} device events for {calls} calls")
+    return {"calls_recorded": n_kernel,
+            "ms": {name: t / n_kernel for name, t in sorted(
+                ms.items(), key=lambda x: -x[1])}}
+
+
+def kc_exact(torch, rng, batches: dict, dev) -> int:
+    """KC against its plain version and ``batch_entries`` against the path
+    before KC on each batch, at every k of ``KP_KS``, with and without
+    coordinates; returns the number of cases (each calls KC twice)."""
+    from kmerutils_tpu_torch.count import stream
+    from kmerutils_tpu_torch.ops import count_prefix as KC
+    n_checks = 0
+    for name, b in batches.items():
+        idx = rng.permutation(b.n_reads) + 7
+        for k in KP_KS:
+            offs = KC.offsets(b.host_lengths, k)
+            for coords in (False, True):
+                got = KC.count_prefix(b.words, b.lengths, k, offs, coords)
+                want = KC.count_prefix_ref(b.words, b.lengths, k, offs,
+                                           coords)
+                run = stream.batch_entries(b, k, idx, coords)
+                run_want = plain_entries(torch, b, k, idx, coords)
+                sync(torch, dev)
+                check(same_run(torch, got, want),
+                      f"KC != plain at {name} {tuple(b.words.shape)}, k={k},"
+                      f" coords={coords}: {int(offs[-1])} outputs")
+                check(same_run(torch, run, run_want),
+                      f"batch_entries != the plain path at {name}, k={k}, "
+                      f"coords={coords}")
+                n_checks += 1
+    return n_checks
+
+
+def count_prefix_phase(torch, rng, card: str, dev="cuda") -> dict:
+    """Phase 17: KC exact against its plain version at ``KC_SHAPES`` for
+    every k of ``KP_KS`` with and without coordinates, ``batch_entries``
+    through it exact against the path before it, no wait for the device
+    in ``batch_entries`` of a batch with host lengths, its launch counter
+    against the calls, and KC and ``batch_entries`` timed at
+    ``KC_TIMED``."""
+    from kmerutils_tpu_torch import roofline
+    from kmerutils_tpu_torch.count import stream
+    from kmerutils_tpu_torch.ops import count_prefix as KC
+    phase("17 KC (the k-mer prefix of counting) vs plain (exact) and "
+          "timing")
+    t_phase = time.perf_counter()
+    batches = {name: kc_batch(rng, n, L, lens, dev)
+               for name, n, L, lens in KC_SHAPES}
+    before = KC.launches_count_prefix
+    n_checks = kc_exact(torch, rng, batches, dev)
+    launches = KC.launches_count_prefix - before
+    check(launches == 2 * n_checks,
+          f"KC launches {launches} for {n_checks} calls and as many "
+          "batch_entries")
+    print(f"KC: {n_checks} cases equal to the plain version, "
+          f"batch_entries equal to the plain path; {launches} launches",
+          flush=True)
+    # no wait for the device: a batch with host lengths, with and without
+    # coordinates
+    for name, k, coords in (("cell_median", 16, False), ("unique", 21, True)):
+        b = batches[name]
+        check(b.host_lengths is not None, f"{name} has no host lengths")
+        stream.batch_entries(b, k, np.arange(b.n_reads), coords)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            stream.batch_entries(b, k, np.arange(b.n_reads), coords)
+        except RuntimeError as e:
+            check(False, f"batch_entries waited for the device at {name}: "
+                  f"{e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out = {"checks": n_checks, "shapes": {}}
+    for name, k, coords in KC_TIMED:
+        b = batches[name]
+        offs = KC.offsets(b.host_lengths, k)
+        kern = functools.partial(KC.count_prefix, b.words, b.lengths, k,
+                                 offs, coords)
+        plain = functools.partial(KC.count_prefix_ref, b.words, b.lengths,
+                                  k, offs, coords)
+        ms, pms, runs = turns(torch, kern, plain, iters=100)
+        n, W = b.words.shape
+        total = int(offs[-1])
+        nbytes = n * W * 4 + (n + 1) * 8 + total * (
+            (4 if k <= 16 else 8) + (8 if coords else 0))
+        bound = roofline.bound(nbytes)
+        kc = device_split(torch, kern, 50, "count_prefix_kernel")
+        kc_ms = sum(t for nm, t in kc["ms"].items()
+                    if nm.startswith("count_prefix_kernel"))
+        idx = np.arange(b.n_reads)
+        entries = functools.partial(stream.batch_entries, b, k, idx, coords)
+        ems = cuda_ms(torch, entries, 50)
+        split = device_split(torch, entries, 50, "count_prefix_kernel")
+        r = {"timing": f"kc_{name}_k{k}" + ("_coords" if coords else ""),
+             "rows": n, "W": W, "outputs": total,
+             "ms_plain_kern_kern_plain": runs,
+             "enqueue_ms": enqueue_ms(torch, kern, iters=200),
+             "device_ms": kc_ms, "device_ms_by_kernel": kc["ms"],
+             "bytes": nbytes, "bound_ms": bound[0], "bound_by": bound[1],
+             "bound_share_device": bound[0] / kc_ms,
+             "goutputs_per_s": total / kc_ms / 1e6,
+             "batch_entries_ms": ems,
+             "batch_entries_enqueue_ms": enqueue_ms(torch, entries, 50),
+             "batch_entries_device_ms": sum(split["ms"].values()),
+             "batch_entries_device_ms_by_kernel": split["ms"]}
+        print(json.dumps({**r, "card": card}), flush=True)
+        out["shapes"][r["timing"][3:]] = {
+            "ms": ms, "plain_ms": pms, "bound_ms": bound[0],
+            "device_ms": kc_ms, "enqueue_ms": r["enqueue_ms"],
+            "batch_entries_device_ms": r["batch_entries_device_ms"]}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"timing": "phase17_s", "card": card,
+                      "launches": launches, "total": out["seconds"]}),
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --baseline: K1-K7 and G1/G2 of this tree against another tree's, in
 # turns
 # ---------------------------------------------------------------------------
@@ -4225,6 +4486,8 @@ def main(argv=None) -> int:
                            os.path.join(tmp, "bact.fastq"), oracle16)
             torch.cuda.empty_cache()
             kp = kmer_prefix_phase(torch, rng, card)
+            torch.cuda.empty_cache()
+            kc = count_prefix_phase(torch, rng, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4311,6 +4574,20 @@ def main(argv=None) -> int:
         "library_ms": None, "device_ms": kp_bench["device_ms"],
         **{f"{k}_each_shape": {s: r[k] for s, r in kp["shapes"].items()}
            for k in ("ms", "plain_ms", "bound_ms", "device_ms")}})
+    kc_cell = kc["shapes"]["cell_median_k16"]
+    kernels.append({
+        "name": "count_prefix", "route": "cuda", "source": KP_SOURCE,
+        "replaces": None, "jax_function": KC_JAX,
+        "launches": launches["KC"],
+        "launches_unique21": launches["KC_unique21"],
+        "launches_phase17": kc["launches"],
+        "mismatches": 0, "max_abs_err": 0,
+        "ms": kc_cell["ms"], "plain_ms": kc_cell["plain_ms"],
+        "bound_ms": kc_cell["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "device_ms": kc_cell["device_ms"],
+        **{f"{k}_each_shape": {s: r[k] for s, r in kc["shapes"].items()}
+           for k in ("ms", "plain_ms", "bound_ms", "device_ms",
+                     "batch_entries_device_ms")}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

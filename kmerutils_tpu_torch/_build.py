@@ -101,6 +101,11 @@ def declare_kmers(lib) -> None:
     lib.launch_kmer_prefix.restype = ci
     lib.launch_kmer_prefix.argtypes = [vp, vp, vp, vp, ll, ll, ll, ci, ci, ll,
                                        vp]
+    lib.count_prefix_config.restype = ci
+    lib.count_prefix_config.argtypes = [ctypes.POINTER(ci)]
+    lib.launch_count_prefix.restype = ci
+    lib.launch_count_prefix.argtypes = [vp, vp, vp, vp, ll, ll, ll, ci, ll,
+                                        ll, vp]
 
 
 def declare_merge(lib) -> None:

@@ -3,8 +3,9 @@
 Port of kmerutils_tpu/count/stream.py.  The table is a sorted run of
 entries with pending duplicates; each batch goes through
 
-  batch      ->  one ``torch.sort`` of the batch's canonical k-mers (one
-                 entry per valid position, count 1 each)
+  batch      ->  the batch's valid canonical k-mers by kernel KC
+                 (ops/count_prefix.py), then one ``torch.sort`` of them
+                 (one entry per valid position, count 1 each)
   fold       ->  ONE merge of (table, batch) by kernel K3
                  (ops/merge.merge_fold); duplicate keys coexist as separate
                  entries
@@ -42,10 +43,9 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..base import kmer as kmer_mod
 from ..base.sequence import ReadBatch
-from ..ops import merge
-from ..ops.bitops import M32, flip64
+from ..ops import count_prefix, merge
+from ..ops.bitops import M32, flip32, flip64
 
 # one batch is capped at 8M padded bases (io/fastx.read_batches); the
 # auto-compact threshold keeps this much headroom so a fold can never
@@ -104,23 +104,6 @@ class StreamCountTable:
                  if coords else None))
 
 
-def _compress(valid: torch.Tensor, n_valid: int, *arrays):
-    """The entries of each 1-D array where ``valid`` is True, in order,
-    given their number ``n_valid`` on the host: one scan and a scatter an
-    array, with no read of the device (boolean indexing waits for the
-    count).  Invalid entries land in a spare last slot, then cut off.  On
-    the CPU ``n_valid`` is checked against the mask."""
-    if valid.device.type == "cpu" and int(valid.sum()) != n_valid:
-        raise ValueError(f"{n_valid} valid positions from the host lengths,"
-                         f" {int(valid.sum())} in the batch")
-    dst = torch.where(valid, torch.cumsum(valid, 0) - 1, n_valid)
-    outs = []
-    for a in arrays:
-        o = torch.empty(n_valid + 1, dtype=a.dtype, device=a.device)
-        outs.append(o.scatter_(0, dst, a)[:n_valid])
-    return outs
-
-
 def batch_entries(batch: ReadBatch, k: int, read_indices,
                   coords: bool = False):
     """One batch's sorted run for :func:`fold`: (key, crd) with one entry
@@ -129,36 +112,33 @@ def batch_entries(batch: ReadBatch, k: int, read_indices,
     pos with read_num = ``read_indices[row]`` (the batch's map from rows to
     read numbers in file order, io/fastx.read_batches).
 
-    The valid positions number the sum over rows of max(length - k + 1,
-    0), counted from ``batch.host_lengths`` (a batch moved from the host,
-    as ingest moves it) with no read of the device; a batch made on the
-    device without them costs one read of its lengths.  Span
-    ``count.entries``, over rows x positions.
+    The valid positions' keys come compacted at the rows' offsets and in
+    the sort's form from kernel KC (ops/count_prefix.py), then one sort (4
+    bytes a key for k <= 16, 8 above; stable with coordinates) and one xor
+    back to the table's bit patterns.  The offsets come from
+    ``batch.host_lengths`` (a batch moved from the host, as ingest moves
+    it), and they and the read numbers go up through pinned memory, so
+    nothing waits for the device; a batch made on the device without them
+    costs one read of its lengths.  Span ``count.entries``, over rows x
+    positions.
     """
     host = (batch.host_lengths if batch.host_lengths is not None
             else batch.lengths.cpu())
-    n_valid = int((host.to(torch.int64) - (k - 1)).clamp_(min=0).sum())
-    work = batch.n_reads * max(batch.max_len - k + 1, 1)
-    with obs.span("count.entries", work, batch.device):
-        can, valid, _ = kmer_mod.canonical_kmers(batch, k)
-        p = can.shape[1]
-        wide = k > 16
-        keys, *at = _compress(valid.reshape(-1), n_valid, can.reshape(-1), *(
-            [torch.arange(valid.numel(), device=can.device)]
-            if coords else []))
-        # int64 carriers: u32 keys sort as they are, u64 bit patterns
-        # flipped
-        skeys = flip64(keys) if wide else keys
+    offs = count_prefix.offsets(host, k)
+    p = max(batch.max_len - k + 1, 1)
+    with obs.span("count.entries", batch.n_reads * p, batch.device):
+        skeys, flat = count_prefix.count_prefix(batch.words, batch.lengths,
+                                                k, offs, coords)
         crd = None
         if coords:
             skeys, perm = torch.sort(skeys, stable=True)
-            flat = at[0][perm]
-            rows = torch.as_tensor(np.asarray(read_indices, np.int64),
-                                   device=can.device)
+            flat = flat[perm]
+            rows = count_prefix.upload(torch.as_tensor(
+                np.asarray(read_indices, np.int64)), skeys.device)
             crd = (rows[flat // p] << 32) | (flat % p)
         else:
             skeys = torch.sort(skeys).values
-        key = flip64(skeys) if wide else skeys.to(torch.int32)
+        key = flip64(skeys) if k > 16 else flip32(skeys)
     return key, crd
 
 
@@ -370,7 +350,7 @@ class StreamCounter:
     ingest carry them.  Nothing else waits for the device.
 
     Spans (``obs.py``, off unless ``obs.sink`` is set): ``count.entries``
-    (k-mers, canonical form, validity, the batch sort; work: rows x
+    (kernel KC's valid canonical k-mers and the batch sort; work: rows x
     positions), ``count.stage`` (K5), ``count.fold`` (K3) and
     ``count.compact`` (K4), each of the last three over entries in plus
     entries out.  Counters (``obs.count``): ``count.folds`` (a fold's run

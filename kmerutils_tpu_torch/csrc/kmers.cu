@@ -208,3 +208,217 @@ extern "C" int launch_kmer_prefix(const void* words, const void* lengths,
   }
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// KC: the k-mer prefix of counting.  Packed words to the batch's valid
+// canonical k-mers, compacted at the rows' offsets, in the sort's form.
+//
+// Not a replacement of a TPU kernel either: the JAX package's counting
+// prefix (kmerutils_tpu/count/stream.py::batch_entries over
+// kmerutils_tpu/base/kmer.py::canonical_kmers) is plain array code that
+// XLA fuses.  Eager PyTorch ran it as some thirty int64 passes over [n, P]
+// and a where / cumsum / scatter selection of the valid positions.  This
+// kernel writes, for output o in [0, total) of row r (offsets[r] <= o <
+// offsets[r + 1], offsets[r + 1] - offsets[r] = max(lengths[r] - k + 1, 0))
+// at position p = o - offsets[r]:
+//   keys[o]  the canonical k-mer of (r, p), as item_at gives it to KP with
+//            the identity hash, its top bit flipped: int32 for k <= 16,
+//            int64 above, so that a signed sort gives the unsigned order;
+//   flat[o]  r * P + p as int64, with coordinates only.
+// Only valid positions (p + k <= lengths[r]) have an output, and every
+// output is written once.  The strand is not computed.
+//
+// What bounds it: bytes.  The words are read once (an eighth of a byte a
+// base), the offsets once, and each output writes 4 (k <= 16) or 8 bytes
+// of key, plus 8 of index with coordinates: at k = 16 without coordinates
+// a batch of ~6.0 M outputs moves ~1.6 MB in and ~24 MB out, ~7.7 us at
+// 3.35 TB/s.  The arithmetic (KP's without the hash) is under that.
+//
+// Design: the OUTPUT is walked, so that every store is a whole aligned
+// vector.  A block takes a tile of kCountTile = kCountThreads * kCountVec
+// consecutive outputs (a grid-stride loop over tiles); thread t takes
+// outputs 4t .. 4t + 3 of it and writes them with one 16-byte store of
+// keys (two on the 64-bit path, and two of indices with coordinates): a
+// warp writes 512 contiguous bytes of keys.  Rows are found without a
+// search per output: warp 0 finds the rows of the tile's first and last
+// outputs in offsets[] by a 32-ary search (a load a lane a round, three
+// rounds up to 32 K rows); a thread then searches between those two rows
+// only (no step when the tile lies in one row, as it does for reads of
+// thousands of bases), and an output past its row's end searches again
+// from the next row.  Invalid positions cost nothing: they have no output.
+// The words are read through the read-only path; neighbouring threads read
+// the same or neighbouring words.
+
+namespace {
+
+constexpr int kCountThreads = 256;
+constexpr int kCountVec = 4;   // outputs a thread writes together
+constexpr long long kCountTile = kCountThreads * kCountVec;
+
+// The largest r in [lo, hi) with offsets[r] <= o, given offsets[lo] <= o
+// (offsets are non-decreasing).
+__device__ __forceinline__ long long row_of(const long long* __restrict__ off,
+                                            long long lo, long long hi,
+                                            long long o) {
+  while (hi - lo > 1) {
+    const long long mid = lo + ((hi - lo) >> 1);
+    if (__ldg(off + mid) <= o)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// row_of by the 32 lanes of a warp together: each round lane i tests lo +
+// i * step, and the range narrows to the step after the last lane whose
+// test holds (the tests that hold are a prefix, lane 0's always).
+__device__ __forceinline__ long long warp_row_of(
+    const long long* __restrict__ off, long long lo, long long hi,
+    long long o, int lane) {
+  while (hi - lo > 1) {
+    const long long step = (hi - lo + 31) >> 5;
+    const long long c = lo + lane * step;
+    const unsigned hold =
+        __ballot_sync(0xFFFFFFFFu, c < hi && __ldg(off + c) <= o);
+    lo += (31 - __clz((int)hold)) * step;
+    hi = min(lo + step, hi);
+  }
+  return lo;
+}
+
+// words [n, W] u32, offsets [n + 1] int64 (offsets[n] = total), keys
+// [total] int32 or int64, flat [total] int64 (kCoords only).
+template <bool kWide, bool kCoords>
+__global__ void __launch_bounds__(kCountThreads)
+count_prefix_kernel(const uint32_t* __restrict__ words,
+                    const long long* __restrict__ offsets,
+                    void* __restrict__ keys, long long* __restrict__ flat,
+                    long long n, long long W, long long P, int k,
+                    long long total) {
+  __shared__ long long rows[2];
+  const int shift = (kWide ? 64 : 32) - 2 * k;
+  const long long tiles = (total + kCountTile - 1) / kCountTile;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long t0 = tile * kCountTile;
+    const long long last = min(t0 + kCountTile, total) - 1;
+    if (threadIdx.x < 32) {
+      const long long r0 = warp_row_of(offsets, 0, n, t0, threadIdx.x);
+      const long long r1 = warp_row_of(offsets, r0, n, last, threadIdx.x);
+      if (threadIdx.x == 0) {
+        rows[0] = r0;
+        rows[1] = r1;
+      }
+    }
+    __syncthreads();
+    const long long r0 = rows[0], r1 = rows[1];
+    __syncthreads();   // rows is written again for the next tile
+    const long long o0 = t0 + (long long)threadIdx.x * kCountVec;
+    if (o0 > last) continue;
+    const int cnt = (int)min((long long)kCountVec, last - o0 + 1);
+    long long row = row_of(offsets, r0, r1 + 1, o0);
+    long long start = __ldg(offsets + row), end = __ldg(offsets + row + 1);
+    u64 key[kCountVec];
+    long long at[kCountVec];
+#pragma unroll
+    for (int e = 0; e < kCountVec; ++e) {
+      key[e] = 0;
+      at[e] = 0;
+      if (e < cnt) {
+        const long long o = o0 + e;
+        if (o >= end) {
+          row = row_of(offsets, row + 1, r1 + 1, o);
+          start = __ldg(offsets + row);
+          end = __ldg(offsets + row + 1);
+        }
+        const long long p = o - start;
+        const u64 can = item_at<kWide, false>(words + row * W, p >> 4,
+                                              (int)(p & 15) * 2, W, shift);
+        key[e] = can ^ (kWide ? 0x8000000000000000ull : 0x80000000ull);
+        at[e] = row * P + p;
+      }
+    }
+    if (cnt == kCountVec) {
+      if (kWide) {
+        ulonglong2* d = reinterpret_cast<ulonglong2*>(keys) + o0 / 2;
+        d[0] = make_ulonglong2(key[0], key[1]);
+        d[1] = make_ulonglong2(key[2], key[3]);
+      } else {
+        reinterpret_cast<uint4*>(keys)[o0 / kCountVec] =
+            make_uint4((uint32_t)key[0], (uint32_t)key[1], (uint32_t)key[2],
+                       (uint32_t)key[3]);
+      }
+      if (kCoords) {
+        longlong2* d = reinterpret_cast<longlong2*>(flat) + o0 / 2;
+        d[0] = make_longlong2(at[0], at[1]);
+        d[1] = make_longlong2(at[2], at[3]);
+      }
+    } else {
+      for (int e = 0; e < cnt; ++e) {
+        if (kWide)
+          reinterpret_cast<u64*>(keys)[o0 + e] = key[e];
+        else
+          reinterpret_cast<uint32_t*>(keys)[o0 + e] = (uint32_t)key[e];
+        if (kCoords) flat[o0 + e] = at[e];
+      }
+    }
+  }
+}
+
+template <bool kWide, bool kCoords>
+void launch_count(const void* words, const void* offsets, void* keys,
+                  void* flat, long long n, long long W, long long P, int k,
+                  long long total, unsigned blocks, cudaStream_t stream) {
+  count_prefix_kernel<kWide, kCoords><<<blocks, kCountThreads, 0, stream>>>(
+      (const uint32_t*)words, (const long long*)offsets, keys,
+      (long long*)flat, n, W, P, k, total);
+}
+
+}  // namespace
+
+// out[0] = threads per block, out[1] = outputs a thread writes together:
+// ops/count_prefix.py checks them against its own constants.
+extern "C" int count_prefix_config(int* out) {
+  out[0] = kCountThreads;
+  out[1] = kCountVec;
+  return 0;
+}
+
+// KC: words [n, W] u32 (16 bases a word, a slack word at the end of each
+// row) and offsets [n + 1] int64 (offsets[r] the first output of row r,
+// offsets[n] = total; row r has max(length - k + 1, 0) outputs, at most P
+// = max(16 (W - 1) - k + 1, 1)) -> keys [total] (int32 u32 ^ 2^31 for
+// k <= 16, int64 u64 ^ 2^63 above) and, when flat is not null, flat
+// [total] int64 (row * P + position).  `blocks` of kCountThreads threads
+// walk the tiles in a grid-stride loop (ops/count_prefix.py::blocks).
+// keys and flat must be 16-byte aligned; anything else is refused with
+// cudaErrorInvalidValue.
+extern "C" int launch_count_prefix(const void* words, const void* offsets,
+                                   void* keys, void* flat, long long n,
+                                   long long W, long long P, int k,
+                                   long long total, long long blocks,
+                                   void* stream) {
+  if (k < 1 || k > 32 || n < 0 || W < 2 || P < 1 || P > 16 * (W - 1) ||
+      total < 0 || total > n * P || blocks < 1 || blocks > 0x7FFFFFFFLL ||
+      ((uintptr_t)keys & 15) != 0 || ((uintptr_t)flat & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (total == 0) return 0;
+  const unsigned b = (unsigned)blocks;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k > 16) {
+    if (flat)
+      launch_count<true, true>(words, offsets, keys, flat, n, W, P, k, total,
+                               b, s);
+    else
+      launch_count<true, false>(words, offsets, keys, flat, n, W, P, k,
+                                total, b, s);
+  } else {
+    if (flat)
+      launch_count<false, true>(words, offsets, keys, flat, n, W, P, k,
+                                total, b, s);
+    else
+      launch_count<false, false>(words, offsets, keys, flat, n, W, P, k,
+                                 total, b, s);
+  }
+  return (int)cudaGetLastError();
+}

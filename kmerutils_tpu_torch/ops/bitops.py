@@ -19,6 +19,7 @@ import torch
 
 M32 = 0xFFFFFFFF
 SIGN64 = -(1 << 63)   # int64 pattern of 0x8000000000000000
+SIGN32 = -(1 << 31)   # int32 pattern of 0x80000000
 
 
 def s64(c: int) -> int:
@@ -55,6 +56,12 @@ def urem64(x: torch.Tensor, m: int) -> torch.Tensor:
 def flip64(x: torch.Tensor) -> torch.Tensor:
     """Order-preserving map of u64 bit patterns onto signed int64 order."""
     return x ^ SIGN64
+
+
+def flip32(x: torch.Tensor) -> torch.Tensor:
+    """Order-preserving map of u32 bit patterns in int32 onto signed int32
+    order (its own inverse, as :func:`flip64`)."""
+    return x ^ SIGN32
 
 
 def lt_u64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
