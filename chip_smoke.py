@@ -1754,10 +1754,37 @@ def k7_profile(torch, fn, iters: int = 10) -> dict:
             "kernels": {k: v / n for k, v in names.items()}}
 
 
+def live_arrays(gen, n: int, narr: int, frac: float, dev="cuda"):
+    """narr int32 arrays of n entries made on ``dev`` from the generator
+    ``gen``: a share ``frac`` of live entries (first word not all ones,
+    values over the whole u32 range), the rest dead (first word -1)."""
+    import torch
+    first = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), dtype=torch.int32,
+                          device=dev, generator=gen)
+    first = torch.where(first == -1, 0, first)
+    dead = torch.rand(n, device=dev, generator=gen) >= frac
+    first = torch.where(dead, -1, first)
+    rest = [torch.randint(-(1 << 31), (1 << 31) - 1, (n,), dtype=torch.int32,
+                          device=dev, generator=gen)
+            for _ in range(narr - 1)]
+    return (first, *rest)
+
+
+def exact_path_arrays(batch, k: int = 21):
+    """K7's five arrays in ``count/exact.compact_detailed`` of
+    ``count_batch_detailed(batch, k)``: the liveness word (count - 1), the
+    key's halves, read numbers and positions."""
+    import torch
+    from kmerutils_tpu_torch.count import exact
+    kd = exact.count_batch_detailed(batch, k)
+    return ((kd[1] - 1).contiguous(), kd[0].to(torch.int32),
+            (kd[0] >> 32).to(torch.int32), kd[2].contiguous(),
+            kd[3].contiguous())
+
+
 def k7_synthetic(torch, gen, n_syn: int = 64 << 20):
     """Phase 9's six 64 Mi-entry shapes: (description, arrays on the card
     made from ``gen``), one at a time."""
-    from kmerutils_tpu_torch.sweep_compact import live_arrays
     for narr in (1, 5):
         for frac in (0.1, 0.5, 0.9):
             yield (f"{n_syn} entries x {narr} arrays, {frac:.0%} live",
@@ -1817,7 +1844,6 @@ def k7_and_exact(torch, rng, card: str, bounds: Bounds, dev="cuda",
     from kmerutils_tpu_torch.base.sequence import pack_ascii_reads, pack_codes
     from kmerutils_tpu_torch.count import exact
     from kmerutils_tpu_torch.ops import merge as M
-    from kmerutils_tpu_torch.sweep_compact import exact_path_arrays
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     res = {"mismatches": 0, "max_abs_err": 0, "shapes": []}
@@ -1897,7 +1923,6 @@ def k7_against_baseline(torch, rng, card: str, bounds: Bounds,
     equal to the plain version, then CUDA-event ms and profiler device ms
     in turns."""
     from kmerutils_tpu_torch.ops import merge as M
-    from kmerutils_tpu_torch.sweep_compact import exact_path_arrays
     mods = {"baseline": importlib.import_module("baseline_port.ops.merge"),
             "this": M}
     gen = torch.Generator(device="cuda")
@@ -3144,7 +3169,7 @@ def sharded_path(torch, rng, card: str, fq: str, reads, walls8, oracle16,
         ctr, got = driven(lambda: counter_run(
             file_order_batches(small, 24, dev), 16, 1 << 20,
             cap_max_per_device=1 << 23))
-        check(ctr.table.capacity > 1 << 20 and not ctr.spill_stores,
+        check(ctr.table.capacity > 1 << 20 and ctr.spill_store is None,
               "the growth run never grew")
         check_counter(got, small, 16, False,
                       f"growth run ({ctr.table.capacity} entries at the end)")
@@ -3152,7 +3177,7 @@ def sharded_path(torch, rng, card: str, fq: str, reads, walls8, oracle16,
         ctr, got = driven(lambda: counter_run(
             file_order_batches(small, 24, dev), 16, 1 << 20,
             coords=True))
-        segs = ctr.spill_stores[0].n_segments if ctr.spill_stores else 0
+        segs = ctr.n_segments
         check(segs >= 2, f"spill run wrote {segs} segments, want >= 2")
         check_counter(got, small, 16, True, f"spill run ({segs} segments)")
         ctr.close()

@@ -16,7 +16,6 @@ import ctypes
 import glob
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +23,6 @@ import time
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC_DIR), "..", "build", "kernels")
-SWEEP_DIR = os.path.join(os.path.dirname(BUILD_DIR), "sweep")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -67,22 +65,18 @@ class TournamentPlan(ctypes.Structure):
 
 
 def _declare(lib) -> None:
-    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    """argtypes and restype of every C entry point of ``csrc/``."""
+    vp, ci, ll, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_uint
+    vpp = ctypes.POINTER(vp)
+    # csrc/tournament.cu
     lib.tournament_config.restype = ci
     lib.tournament_config.argtypes = [ci, ci, ctypes.POINTER(ci)]
     lib.launch_tournament.restype = ci
     lib.launch_tournament.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ll, ci,
                                       ci, ci, ctypes.POINTER(TournamentPlan),
                                       vp]
-    declare_sketch(lib)
-    declare_merge(lib)
-    declare_kmers(lib)
-
-
-def declare_sketch(lib) -> None:
-    """argtypes of csrc/sketch.cu's entry points (also for a library built
-    from that source alone)."""
-    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # csrc/sketch.cu
     lib.sketch_grid_config.restype = ci
     lib.sketch_grid_config.argtypes = [ctypes.POINTER(ci)]
     lib.launch_grid_min.restype = ci
@@ -91,28 +85,7 @@ def declare_sketch(lib) -> None:
     lib.launch_grid_max.restype = ci
     lib.launch_grid_max.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, ci, ll,
                                     vp]
-
-
-def declare_kmers(lib) -> None:
-    """argtypes of csrc/kmers.cu's entry points."""
-    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.kmer_prefix_config.restype = ci
-    lib.kmer_prefix_config.argtypes = [ctypes.POINTER(ci)]
-    lib.launch_kmer_prefix.restype = ci
-    lib.launch_kmer_prefix.argtypes = [vp, vp, vp, vp, ll, ll, ll, ci, ci, ll,
-                                       vp]
-    lib.count_prefix_config.restype = ci
-    lib.count_prefix_config.argtypes = [ctypes.POINTER(ci)]
-    lib.launch_count_prefix.restype = ci
-    lib.launch_count_prefix.argtypes = [vp, vp, vp, vp, ll, ll, ll, ci, ll,
-                                        ll, vp]
-
-
-def declare_merge(lib) -> None:
-    """argtypes of csrc/merge.cu's entry points (also for a library built
-    from that source alone)."""
-    vp, ci, ll, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-        ctypes.c_uint
+    # csrc/merge.cu
     lib.aggregate_scratch_words.restype = ll
     lib.aggregate_scratch_words.argtypes = [ll]
     lib.aggregate_tile_entries.restype = ci
@@ -125,13 +98,23 @@ def declare_merge(lib) -> None:
     lib.launch_aggregate.restype = ci
     lib.launch_aggregate.argtypes = [ci, ci, ci, vp, vp, vp, ll, cu, cu,
                                      vp, vp, vp, vp, vp]
-    vpp = ctypes.POINTER(vp)
     lib.compact_scratch_words.restype = ll
     lib.compact_scratch_words.argtypes = [ll]
     lib.compact_tile_entries.restype = ci
     lib.compact_tile_entries.argtypes = []
     lib.launch_compact.restype = ci
     lib.launch_compact.argtypes = [ci, vpp, vpp, ll, vp, vp]
+    # csrc/kmers.cu
+    lib.kmer_prefix_config.restype = ci
+    lib.kmer_prefix_config.argtypes = [ctypes.POINTER(ci)]
+    lib.launch_kmer_prefix.restype = ci
+    lib.launch_kmer_prefix.argtypes = [vp, vp, vp, vp, ll, ll, ll, ci, ci, ll,
+                                       vp]
+    lib.count_prefix_config.restype = ci
+    lib.count_prefix_config.argtypes = [ctypes.POINTER(ci)]
+    lib.launch_count_prefix.restype = ci
+    lib.launch_count_prefix.argtypes = [vp, vp, vp, vp, ll, ll, ll, ci, ll,
+                                        ll, vp]
 
 
 def launch(fn, *args, device) -> None:
@@ -186,59 +169,6 @@ def _compile(path: str) -> None:
                 os.remove(obj)
     build_info.update(seconds=time.perf_counter() - t0, path=path,
                       output="".join(output))
-
-
-def build_variants(configs, defines, source: str = "merge.cu",
-                   declare=declare_merge) -> dict:
-    """{config: (ctypes library, nvcc output)}: csrc/``source`` built once
-    per configuration with the -D flags ``defines(config)`` into
-    build/sweep/ (one nvcc each, all started together), its entry points
-    declared by ``declare``.  For the sweeps (sweep_compact.py,
-    sweep_merge.py, sweep_grid.py)."""
-    os.makedirs(SWEEP_DIR, exist_ok=True)
-    src = os.path.join(CSRC_DIR, source)
-    jobs = []
-    for cfg in configs:
-        flags = defines(cfg)
-        so = os.path.join(SWEEP_DIR, source.split(".")[0] + "".join(
-            "_" + f.split("=")[1] for f in flags) + ".so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", *flags, "-o", so, src]
-        jobs.append((cfg, so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    libs = {}
-    for cfg, so, proc in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {cfg}:\n{out}")
-        lib = ctypes.CDLL(so)
-        declare(lib)
-        libs[cfg] = (lib, out)
-    return libs
-
-
-def ptxas_registers(output: str, kernel: str) -> dict:
-    """{key: (registers, spill bytes)} of the kernels whose mangled names
-    match the regular expression ``kernel`` in nvcc's -Xptxas -v output,
-    keyed by its first group."""
-    out, cur = {}, None
-    for line in output.splitlines():
-        m = re.search(r"(?:entry function|properties for) '?(\w+)", line)
-        if m:
-            cur = re.search(kernel, m.group(1))
-            continue
-        if cur is None:
-            continue
-        regs, spill = out.get(cur.group(1), (0, 0))
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spill = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            regs = int(m.group(1))
-        out[cur.group(1)] = (regs, spill)
-    return out
 
 
 def load():

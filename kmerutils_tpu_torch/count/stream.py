@@ -314,9 +314,6 @@ def finalize(table: StreamCountTable, min_count: int = 1,
     keys = key[:n].cpu().numpy()
     keys = keys.view(np.uint64) if table.wide else keys.view(np.uint32)
     counts = cnt[:n].cpu().numpy().view(np.uint32)
-    if count_clamp is not None:
-        dt = np.uint8 if count_clamp <= 0xFF else np.uint16
-        counts = np.minimum(counts, np.uint32(count_clamp)).astype(dt)
     if table.coords:
         c = crd[:n].cpu().numpy().view(np.uint64)
         rn = (c >> np.uint64(32)).astype(np.uint32)
@@ -324,6 +321,8 @@ def finalize(table: StreamCountTable, min_count: int = 1,
     else:
         rn = np.zeros(n, np.uint32)
         ps = np.zeros(n, np.uint32)
+    # K4 applied the count range; the clamp is the host's
+    keys, counts, rn, ps = _in_range(keys, counts, rn, ps, clamp=count_clamp)
     if phases is not None and n:
         phases["xfer_s"] = phases.get("xfer_s", 0.0) \
             + (time.perf_counter() - t1)
@@ -333,7 +332,9 @@ def finalize(table: StreamCountTable, min_count: int = 1,
 class StreamCounter:
     """The port's counting loop over a stream of batches already on the
     device: :func:`batch_entries`, a :class:`StagedFolder`, the growth
-    ladder and the spill switch (what ``parsefastq kmer`` runs).
+    ladder and the spill switch (what ``parsefastq kmer`` runs, and what
+    parallel/stream.ShardedStreamCounter runs on each rank over the runs
+    its exchange receives).
 
     The table starts at ``min(capacity_max, 2^26)`` entries in ``folder``
     (staged by capacity).  Each fold's ``grow_hint`` is acted on one fold
@@ -364,12 +365,21 @@ class StreamCounter:
                  spill: bool = True):
         self.k = k
         self.coords = coords
+        self._start(StreamCountTable.create(
+            min(capacity_max, 1 << 26), wide=k > 16, coords=coords,
+            device=device), capacity_max, spill)
+
+    def _start(self, table: StreamCountTable, capacity_max: int,
+               spill: bool, depth: int | None = None,
+               spill_dir: str | None = None) -> None:
+        """The loop's state from its first ``table``: staged at ``depth``
+        (None: by capacity), spill segments under ``spill_dir`` (None: the
+        system's temporary directory)."""
         self.capacity_max = capacity_max
         self.spill = spill
-        self.folder = StagedFolder(StreamCountTable.create(
-            min(capacity_max, 1 << 26), wide=k > 16, coords=coords,
-            device=device))
+        self.folder = StagedFolder(table, depth)
         self.spill_store = None
+        self._spill_dir = spill_dir
         self.n_segments = 0        # spill segments merged by finish
         self.pushes = 0
         self.grown_at: list = []   # (pushes, new capacity) of each growth
@@ -386,29 +396,49 @@ class StreamCounter:
     def add(self, batch: ReadBatch, read_indices) -> None:
         """Count one batch; ``read_indices`` maps its rows to read numbers
         (used only with coordinates)."""
+        self._add_run(batch_entries(batch, self.k, read_indices,
+                                    coords=self.coords))
+
+    def _add_run(self, run) -> None:
+        """Stage one sorted run; after each table fold, act on the hint
+        that :meth:`_hint` reads."""
         self.pushes += 1
-        run = batch_entries(batch, self.k, read_indices, coords=self.coords)
-        if not self.folder.push(run):
-            return
+        if self.folder.push(run) and self._hint():
+            self._ladder()
+
+    def _hint(self) -> int:
+        """The grow hint to act on after a fold: the previous fold's (lag
+        1)."""
         self._pending.append(self.folder.table.grow_hint)
-        if len(self._pending) < 2 or not self._pending.pop(0):
-            return
+        return self._pending.pop(0) if len(self._pending) > 1 else 0
+
+    def _ladder(self) -> None:
+        """Grow the table x8 toward ``capacity_max``; past it, spill (or,
+        without ``spill``, let the largest keys drop)."""
         table = self.folder.table
         if table.capacity < self.capacity_max:
             capacity = min(table.capacity * 8, self.capacity_max)
             self.folder.table = grow(table, capacity)
             self.grown_at.append((self.pushes, capacity))
             obs.count("count.grows", capacity)
-            # hints still queued were computed against the old capacity
-            self._pending.clear()
         elif self.spill:
-            from .spill import SpillStore
-            if self.spill_store is None:
-                self.spill_store = SpillStore(wide=table.wide,
-                                              coords=self.coords)
-            obs.count("count.spills", table.used)
-            self.folder.table = self.spill_store.spill_table(table)
-            self._pending.clear()
+            self._spill()
+        else:
+            return
+        # hints still queued were computed against the old table
+        self._pending.clear()
+
+    def _spill(self) -> None:
+        """Ship the table's aggregated runs to a disk segment and restart
+        it empty."""
+        from .spill import SpillStore
+        table = self.folder.table
+        if self.spill_store is None:
+            self.spill_store = SpillStore(wide=table.wide,
+                                          coords=table.coords,
+                                          tmpdir=self._spill_dir)
+        obs.count("count.spills", table.used)
+        self.folder.table = self.spill_store.spill_table(table)
 
     def flush(self) -> StreamCountTable:
         """Fold the staged remainder; returns the table."""
@@ -435,19 +465,28 @@ class StreamCounter:
             store.n_dropped
 
 
+def _in_range(keys, counts, rn, ps, lo: int = 1, hi: int | None = None,
+             clamp: int | None = None):
+    """The host block's entries with ``lo <= count <= hi`` (every entry
+    counts at least 1), counts clamped to ``clamp`` and returned as uint8
+    (``clamp`` <= 0xFF) or uint16, as the dump formats store them."""
+    if lo > 1 or hi is not None:
+        sel = counts >= lo
+        if hi is not None:
+            sel &= counts <= hi
+        keys, counts, rn, ps = keys[sel], counts[sel], rn[sel], ps[sel]
+    if clamp is not None:
+        dt = np.uint8 if clamp <= 0xFF else np.uint16
+        counts = np.minimum(counts, np.uint32(clamp)).astype(dt)
+    return keys, counts, rn, ps
+
+
 def _merged(store, lo: int, hi: int | None, clamp: int | None):
-    """The spill store's merged blocks, filtered and clamped as
-    :func:`finalize` filters and clamps; closes the store at the end."""
+    """The spill store's merged blocks, filtered and clamped by
+    :func:`_in_range`; closes the store at the end."""
     try:
-        for keys, counts, rn, ps in store.merge_stream():
-            sel = counts >= lo
-            if hi is not None:
-                sel &= counts <= hi
-            keys, counts, rn, ps = keys[sel], counts[sel], rn[sel], ps[sel]
-            if clamp is not None:
-                dt = np.uint8 if clamp <= 0xFF else np.uint16
-                counts = np.minimum(counts, np.uint32(clamp)).astype(dt)
-            yield keys, counts, rn, ps
+        for block in store.merge_stream():
+            yield _in_range(*block, lo, hi, clamp)
     finally:
         store.close()
 

@@ -156,20 +156,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// K7's threads per block and entries per thread; built with other values
-// (-D) only by kmerutils_tpu_torch/sweep_compact.py, which times them.
-#ifndef KMER_LIVE_THREADS
-#define KMER_LIVE_THREADS 256
-#endif
-#ifndef KMER_LIVE_IPT
-#define KMER_LIVE_IPT 16
-#endif
-// K3/K5's outputs per thread; built with other values only by
-// kmerutils_tpu_torch/sweep_merge.py, which times them.
-#ifndef KMER_MERGE_IPT
-#define KMER_MERGE_IPT 16
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
@@ -190,7 +176,7 @@ __host__ __device__ constexpr int staged(int e) {
 // merge (K3, K5)
 // ---------------------------------------------------------------------------
 
-constexpr int kMergeIpt = KMER_MERGE_IPT;
+constexpr int kMergeIpt = 16;      // outputs per thread
 constexpr int kMergeTile = kThreads * kMergeIpt;
 static_assert(kMergeTile <= 65536, "source indices are staged as 16 bits");
 
@@ -818,8 +804,8 @@ agg_emit_kernel(const K* __restrict__ key, const uint32_t* __restrict__ cnt,
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxArrays = 5;
-constexpr int kLiveThreads = KMER_LIVE_THREADS;
-constexpr int kLiveIpt = KMER_LIVE_IPT;
+constexpr int kLiveThreads = 256;   // threads per block
+constexpr int kLiveIpt = 16;        // entries per thread
 constexpr int kLiveWarps = kLiveThreads / 32;
 constexpr int kLiveTile = kLiveThreads * kLiveIpt;
 constexpr int kRanks = kLiveIpt * kLiveWarps;    // (round, warp) live counts

@@ -99,40 +99,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// G1's build constants; sweep_grid.py builds other values with -D
-#ifndef KMER_GRID_R
-#define KMER_GRID_R 8          // slots a thread holds in registers
-#endif
-#ifndef KMER_GRID_CHUNK
-#define KMER_GRID_CHUNK 1024   // positions staged per step
-#endif
-#ifndef KMER_GRID_INLINE
-#define KMER_GRID_INLINE 1     // walk rounds in the main loop
-#endif
-#ifndef KMER_GRID_DRAIN
-#define KMER_GRID_DRAIN 1      // 0: no drain, a wrong result; for timing
-#endif                         // the main loop alone (sweep_grid.py)
-
-// G2's build constants; sweep_grid.py --kernel grid_max builds others
-#ifndef KMER_GRID_MAX_R
-#define KMER_GRID_MAX_R 4          // slots a thread holds in registers
-#endif
-#ifndef KMER_GRID_MAX_VEC
-#define KMER_GRID_MAX_VEC 4        // staged positions a shared load
-#endif
-#ifndef KMER_GRID_MAX_CHUNK
-#define KMER_GRID_MAX_CHUNK 2048   // positions staged per step
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;   // threads per block at most (G1 and G2)
 constexpr int kWalks = 4;       // cycle-walk rounds after the first
 constexpr int kMaxGroup = 2048; // slots a group at most (G1 and G2)
 
-constexpr int kG2R = KMER_GRID_MAX_R;
-constexpr int kG2Vec = KMER_GRID_MAX_VEC;
-constexpr int kG2Chunk = KMER_GRID_MAX_CHUNK;
+constexpr int kG2R = 4;         // G2: slots a thread holds in registers
+constexpr int kG2Vec = 4;       // G2: staged positions a shared load
+constexpr int kG2Chunk = 2048;  // G2: positions staged per step
 static_assert(kG2R >= 1 && kG2R <= 32, "G2's slots a thread");
 static_assert(kG2Vec == 1 || kG2Vec == 2 || kG2Vec == 4,
               "a shared load is 4, 8 or 16 bytes");
@@ -140,9 +115,9 @@ static_assert(kG2Chunk >= 32 && kG2Chunk % kG2Vec == 0, "G2's chunk");
 static_assert((kG2Chunk + kMaxGroup) * 4 + 4 <= 48 * 1024,
               "G2's static shared memory");
 
-constexpr int kR = KMER_GRID_R;
-constexpr int kMinChunk = KMER_GRID_CHUNK;
-constexpr int kInline = KMER_GRID_INLINE;
+constexpr int kR = 8;             // G1: slots a thread holds in registers
+constexpr int kMinChunk = 1024;   // G1: positions staged per step
+constexpr int kInline = 1;        // G1: walk rounds in the main loop
 constexpr int kQueue = 16;        // G1: main-loop positions between drains
 static_assert(kR >= 1 && kR <= 16, "a queue entry holds 16 slot bits");
 static_assert(kMinChunk >= 32 && kMinChunk <= 1 << 16,
@@ -418,8 +393,7 @@ __global__ void __launch_bounds__(kThreads)
           squeue[qn * kThreads + t] = (uint32_t)i | need << 16;
           qn += need != 0u;
         }
-        if (KMER_GRID_DRAIN)
-          drain(squeue, qn, srec, slotc, sbest, t, ts, T, g * G, c);
+        drain(squeue, qn, srec, slotc, sbest, t, ts, T, g * G, c);
       }
       __syncthreads();
     }

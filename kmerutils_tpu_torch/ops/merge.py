@@ -264,28 +264,15 @@ def compact_live(arrs):
     """K7.  Stable compaction of 1-5 int32 arrays (u32 bit patterns) of one
     length m; an entry is dead when ``arrs[0]`` is all ones (-1).  Returns
     (new arrays of length m with the live entries first, in order, and all
-    ones after them; n_live as a host int)."""
+    ones after them; n_live as a host int).  On the card: one launch and
+    one read of n_live; the output arrays are the rows of one new [narr, m]
+    tensor (one allocation)."""
     global launches_live
     dev = _check_arrays(arrs, "compact_live")
     if dev.type == "cpu":
         return compact_live_ref(arrs)
-    out = compact_live_with(_load(), arrs)
-    if arrs[0].numel():
-        launches_live += 1
-    return out
-
-
-@functools.cache
-def _pointers(narr: int):
-    return ctypes.c_void_p * narr
-
-
-def compact_live_with(lib, arrs):
-    """K7 through the ctypes library ``lib`` (the kernels' own, or a
-    variant that sweep_compact.py built) on checked CUDA arrays: one
-    launch, one read of n_live.  The output arrays are the rows of one
-    new [narr, m] tensor (one allocation)."""
-    n, dev = arrs[0].numel(), arrs[0].device
+    lib = _load()
+    n = arrs[0].numel()
     outs = torch.empty((len(arrs), n), dtype=torch.int32,
                        device=dev).unbind(0)
     if n == 0:
@@ -297,7 +284,13 @@ def compact_live_with(lib, arrs):
                   ptrs(*[a.data_ptr() for a in arrs]),
                   ptrs(*[o.data_ptr() for o in outs]), n, scratch.data_ptr(),
                   device=dev)
+    launches_live += 1
     return outs, int(scratch[-1].item())
+
+
+@functools.cache
+def _pointers(narr: int):
+    return ctypes.c_void_p * narr
 
 
 # ---------------------------------------------------------------------------

@@ -51,7 +51,7 @@ _PLAIN_CHUNK = 1 << 23
 # the kernels' constants (csrc/sketch.cu): threads per block at most and
 # slots a group at most (both kernels); G1's slots a thread and positions
 # staged per step; G2's slots a thread, staged positions a shared load and
-# positions staged per step (sweep_grid.py --kernel grid_max)
+# positions staged per step
 _THREADS, _MAX_GROUP = 256, 2048
 G1_SLOTS_PER_THREAD, _G1_CHUNK = 8, 1024
 G2_SLOTS_PER_THREAD, _G2_VEC, _G2_CHUNK = 4, 4, 2048

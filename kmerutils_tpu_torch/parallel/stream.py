@@ -1,10 +1,10 @@
 """Sharded streaming counting: the production multi-device counting engine.
 
 Port of kmerutils_tpu/parallel/stream.py.  count/stream.py owns the
-one-device streaming table (kernel K3 folds, K4 compactions and finalize,
-K5 staging merges, growth, disk spill); this module runs the SAME
-machinery on every rank of the group, with k-mer space hash-partitioned
-over the ranks:
+counting loop (StreamCounter: kernel K3 folds, K4 compactions and
+finalize, K5 staging merges, growth, disk spill); this module runs that
+loop on every rank of the group, with k-mer space hash-partitioned over
+the ranks.  What only sharding needs stays here:
 
   exchange  ->  each rank extracts and canonicalizes its own reads'
                 k-mers, routes them by shard id (count/dispatch.py) through
@@ -12,26 +12,19 @@ over the ranks:
                 received into a run in count/stream.py's entry layout
                 (count 1 each, optional coordinates; no +1 key bias and no
                 sign flip: those were the TPU kernels' layout)
-  stage     ->  2**depth consecutive runs merge binary-counter style
-                (kernel K5) before they touch the table
-  fold      ->  count/stream.fold on the rank's own table, with no
-                collective; each fold's grow hint stays on the rank
-  hints     ->  the ranks' hints are max-reduced at the host's lag-1 sample
-                points (every ``hint_every`` folds), so every rank takes the
-                same growth and spill decisions at the same fold
-  grow      ->  every rank's table grows x8 together toward
-                ``cap_max_per_device``
-  spill     ->  past the ladder each rank ships its table to its own disk
-                segments (count/spill.py) and restarts it empty
-  finalize  ->  each rank aggregates and filters its shard (kernel K4); the
-                union of the shards needs a group of one rank.
+  hints     ->  each fold's grow hint stays on its rank; the ranks'
+                hints are max-reduced at the host's lag-1 sample points
+                (every ``hint_every`` folds), so every rank grows and
+                spills at the same fold
+  drops     ->  the in-transit drop counts are sum-reduced on every call
+  finalize  ->  each rank finishes its shard; the union of the shards
+                needs a group of one rank.
 
-JAX builds jitted programs per shape here (``make_exchange``,
-``make_fold``, ``make_merge_runs``, ``make_drop_reduce``,
-``make_hint_reduce``) and caches them in ``_PROG_CACHE``; eager PyTorch
-compiles nothing per shape, so each is a plain function called per batch:
-:func:`exchange`, count/stream.fold, ops/merge.merge_sorted,
-:func:`drop_reduce` and :func:`hint_reduce`.
+JAX builds a jitted program per shape for each step (the exchange, the
+fold, the staging merge, the drop and hint reductions) and caches them in
+``_PROG_CACHE``; eager PyTorch compiles nothing per shape, so each is a
+plain function called per batch: :func:`exchange`, count/stream.fold,
+ops/merge.merge_sorted, :func:`drop_reduce` and :func:`hint_reduce`.
 """
 
 from __future__ import annotations
@@ -41,8 +34,7 @@ import torch
 import torch.distributed as dist
 
 from ..base.sequence import ReadBatch
-from ..count import exact, spill as spill_mod, stream
-from ..ops import merge
+from ..count import exact, stream
 from ..ops.bitops import M32
 from . import collective
 from .mesh import Mesh
@@ -151,24 +143,23 @@ def finalize_union(table: stream.StreamCountTable, mesh: Mesh,
                           count_clamp)[mesh.rank]
 
 
-class ShardedStreamCounter:
+class ShardedStreamCounter(stream.StreamCounter):
     """The multi-device ``parsefastq --count`` engine: one hash-sharded
-    merge-fold table per rank, with staging, a growth ladder and disk spill
-    (count/stream.py's one-device feature set on every rank).
+    merge-fold table per rank, each run by count/stream.StreamCounter's
+    loop (staging, the growth ladder, disk spill, the ``count.*`` spans
+    and counters).
 
-    :meth:`update` routes this rank's batch (ONE all_to_all), stages the
-    received run and folds every 2**depth batches.  A fold's grow hint
-    stays on its rank; the ranks max-reduce the hints of fold i - 1 after
-    fold i (lag 1, as the one-device CLI reads them; ``hint_every`` samples
-    sparser on a stream whose capacity is sized in advance), so they all
-    take the same decision: grow every table x8 toward
-    ``cap_max_per_device``, then, past the ladder, spill every table to its
-    rank's disk segments and restart it empty.  Every rank must call
-    :meth:`update` for every batch, and :meth:`finalize_local` at the end,
-    as with any collective.
+    :meth:`update` routes this rank's batch (ONE all_to_all) and hands the
+    received run to the loop, which stages it and folds every 2**depth
+    batches.  A fold's grow hint stays on its rank; the ranks max-reduce
+    the hints of fold i - 1 after fold i (lag 1, as the one-device counter
+    reads them; ``hint_every`` samples sparser on a stream whose capacity
+    is sized in advance), so they all take the same decision: grow every
+    table x8 toward ``cap_max_per_device``, then, past the ladder, spill
+    every table to its rank's disk segments and restart it empty.  Every
+    rank must call :meth:`update` for every batch, and
+    :meth:`finalize_local` at the end, as with any collective.
     """
-
-    MAX_DEPTH = stream.StagedFolder.MAX_DEPTH
 
     def __init__(self, mesh: Mesh, capacity_per_device: int, *,
                  wide: bool = False, coords: bool = False,
@@ -179,15 +170,10 @@ class ShardedStreamCounter:
                  hint_every: int = 1):
         self.mesh = mesh
         self.wide, self.coords = wide, coords
-        self.table = sharded_stream_create(capacity_per_device, mesh, wide,
-                                           coords)
-        self.cap_max = cap_max_per_device or capacity_per_device
-        self._depth = depth
-        self._spill_ok = spill
-        self._spill_dir = spill_dir
-        self.spill_stores: dict | None = None   # rank -> SpillStore
-        self._runs: list = []       # [level, run]; levels strictly falling
-        self._pending: list = []    # this rank's unreduced grow hints
+        self._start(sharded_stream_create(capacity_per_device, mesh, wide,
+                                          coords),
+                    cap_max_per_device or capacity_per_device, spill, depth,
+                    spill_dir)
         self._shard_cap_factor = shard_cap_factor
         self.hint_every = max(1, hint_every)
         self._fold_i = 0
@@ -201,13 +187,7 @@ class ShardedStreamCounter:
     def depth(self) -> int:
         """Staging depth: as given, else by the table's CURRENT capacity
         (count/stream.StagedFolder's rule)."""
-        if self._depth is not None:
-            return self._depth
-        d = 0
-        while (d < self.MAX_DEPTH
-               and 6 * (2 << d) * stream.BATCH_CAP <= self.table.capacity):
-            d += 1
-        return d
+        return self.folder.depth
 
     # -- streaming --------------------------------------------------------
     def update(self, batch: ReadBatch, k: int,
@@ -217,61 +197,30 @@ class ShardedStreamCounter:
         run, dropped = exchange(batch, k, self.mesh, self.wide, self.coords,
                                 read_num_offset, self._shard_cap_factor)
         self._local_dropped += dropped
-        self._push(run)
+        self._add_run(run)
 
-    def _push(self, run) -> None:
-        self._runs.append([0, run])
-        while (len(self._runs) >= 2
-               and self._runs[-1][0] == self._runs[-2][0]):
-            lvl, b = self._runs.pop()
-            _, a = self._runs.pop()
-            self._runs.append([lvl + 1, merge.merge_sorted(*a, *b)])
-        if self._runs[0][0] >= self.depth:
-            _, a = self._runs.pop(0)
-            self._fold_run(a)
-
-    def _fold_run(self, run) -> None:
-        self.table = stream.fold(self.table, run)
+    def _hint(self) -> int:
+        """The group's maximum of the ranks' lagged hints on every
+        ``hint_every``-th fold, else 0."""
         self._pending.append(self.table.grow_hint)
         self._fold_i += 1
-        if len(self._pending) > 1 and self._fold_i % self.hint_every == 0:
-            # _fold_i moves in lockstep on every rank, so every rank enters
-            # the reduction at the same folds
-            h = hint_reduce(self.mesh, self._pending.pop(0))
-            self._pending = self._pending[-1:]
-            if h:
-                self._ladder()
-
-    def _ladder(self) -> None:
-        if self.table.capacity < self.cap_max:
-            new_cap = min(self.table.capacity * 8, self.cap_max)
-            self.table = sharded_grow(self.table, new_cap, self.mesh)
-            self._pending.clear()       # stale hints of the old capacity
-        elif self._spill_ok:
-            self.spill_shards()
-            self._pending.clear()
+        if len(self._pending) < 2 or self._fold_i % self.hint_every:
+            return 0
+        # _fold_i moves in lockstep on every rank, so every rank enters the
+        # reduction at the same folds
+        h = hint_reduce(self.mesh, self._pending.pop(0))
+        self._pending = self._pending[-1:]
+        return h
 
     def spill_shards(self) -> None:
         """Ship this rank's aggregated table to its disk segment store and
         restart the table empty."""
-        if self.spill_stores is None:
-            self.spill_stores = {}
-        for r, t in local_shard_tables(self.table, self.mesh):
-            store = self.spill_stores.get(r)
-            if store is None:
-                store = spill_mod.SpillStore(wide=self.wide,
-                                             coords=self.coords,
-                                             tmpdir=self._spill_dir)
-                self.spill_stores[r] = store
-            self.table = store.spill_table(t)
+        self._spill()
 
     def flush(self) -> stream.StreamCountTable:
-        """Fold any staged remainder (end of stream); returns the table."""
-        while self._runs:
-            _, a = self._runs.pop(0)
-            self._fold_run(a)
-        self._pending.clear()
-        return self.table
+        """Fold any staged remainder (end of stream) as the one-device
+        counter does, with no collective; returns the table."""
+        return super().flush()
 
     # -- collection -------------------------------------------------------
     def reduce_in_transit_drops(self) -> int:
@@ -289,38 +238,18 @@ class ShardedStreamCounter:
                        max_count: int | None = None,
                        count_clamp: int | None = None) -> dict:
         """This rank's results after :meth:`flush`: {rank: (keys, counts,
-        read_nums, positions, dropped)}, keys ascending.  After spill
-        epochs the rank's segments and its final table are merged k-way,
-        with the count range applied after the merge.  Also reduces the
-        in-transit drops into ``dropped_in_transit`` (the per-shard
+        read_nums, positions, dropped)}, keys ascending
+        (count/stream.StreamCounter.finish: after spill epochs the rank's
+        final table joins its segments, which are merged k-way with the
+        count range applied after the merge, and removed).  Also reduces
+        the in-transit drops into ``dropped_in_transit`` (the per-shard
         ``dropped`` counts the table's drops only)."""
         self.flush()
         self.reduce_in_transit_drops()
-        if not self.spill_stores:
-            return finalize_local(self.table, self.mesh, min_count,
-                                  max_count, count_clamp)
-        self.spill_shards()              # the final table joins its segments
-        hi = max_count if max_count is not None else np.uint64(1 << 63)
-        out = {}
-        for r, store in sorted(self.spill_stores.items()):
-            pk, pc, pr, pp = [], [], [], []
-            for mk, mc, mr, mp in store.merge_stream():
-                sel = (mc >= min_count) & (mc <= hi)
-                pk.append(mk[sel])
-                if count_clamp is not None:
-                    dt = np.uint8 if count_clamp <= 0xFF else np.uint16
-                    pc.append(np.minimum(mc[sel], count_clamp).astype(dt))
-                else:
-                    pc.append(mc[sel])
-                pr.append(mr[sel])
-                pp.append(mp[sel])
-            kdt = np.uint64 if self.wide else np.uint32
-
-            def cat(xs, dt=np.uint32):
-                return np.concatenate(xs) if xs else np.zeros(0, dt)
-            out[r] = (cat(pk, kdt), cat(pc), cat(pr), cat(pp),
-                      store.n_dropped)
-        return out
+        blocks, dropped = self.finish(min_count, max_count, count_clamp)
+        cols = [c[0] if len(c) == 1 else np.concatenate(c)
+                for c in zip(*blocks)]
+        return {self.mesh.rank: (*cols, dropped)}
 
     def finalize(self, min_count: int = 1, max_count: int | None = None,
                  count_clamp: int | None = None):
@@ -332,7 +261,6 @@ class ShardedStreamCounter:
                                    count_clamp)[self.mesh.rank]
 
     def close(self) -> None:
-        if self.spill_stores:
-            for store in self.spill_stores.values():
-                store.close()
-            self.spill_stores = None
+        if self.spill_store is not None:
+            self.spill_store.close()
+            self.spill_store = None

@@ -151,13 +151,13 @@ def test_compact_live_ref_through_a_dead_chain(narr):
 
 
 def test_live_tile_matches_the_kernel_source():
-    # kLiveTile = KMER_LIVE_THREADS x KMER_LIVE_IPT (their defaults in
-    # csrc/merge.cu); the library reports it on the card
+    # kLiveTile = kLiveThreads x kLiveIpt (constants of csrc/merge.cu);
+    # the library reports it on the card
     src = open(os.path.join(os.path.dirname(t_merge.__file__), "..", "csrc",
                             "merge.cu")).read()
-    defaults = dict(re.findall(r"#define (KMER_LIVE_\w+) (\d+)", src))
-    assert int(defaults["KMER_LIVE_THREADS"]) \
-        * int(defaults["KMER_LIVE_IPT"]) == t_merge.LIVE_TILE
+    consts = dict(re.findall(r"constexpr int (kLive\w+) = (\d+);", src))
+    assert int(consts["kLiveThreads"]) \
+        * int(consts["kLiveIpt"]) == t_merge.LIVE_TILE
 
 
 def test_compact_live_checks_inputs():

@@ -460,11 +460,11 @@ def test_merge_refs_match_numpy_oracle(layout, wide, with_crd):
 
 
 def test_merge_tile_matches_the_kernel_source():
-    # kMergeTile = kThreads (256) x KMER_MERGE_IPT (its default in
-    # csrc/merge.cu); the library reports it on the card
+    # kMergeTile = kThreads (256) x kMergeIpt (constants of csrc/merge.cu);
+    # the library reports it on the card
     src = open(os.path.join(os.path.dirname(M.__file__), "..", "csrc",
                             "merge.cu")).read()
-    ipt = re.search(r"#define KMER_MERGE_IPT (\d+)", src)
+    ipt = re.search(r"constexpr int kMergeIpt = (\d+);", src)
     assert "constexpr int kThreads = 256;" in src
     assert 256 * int(ipt.group(1)) == M.MERGE_TILE
 

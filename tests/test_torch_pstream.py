@@ -12,10 +12,12 @@ at 2 ranks, u64 with a forced in-transit overflow at 4; JAX's Pallas
 merges run in interpret mode): shard d equals rank d in keys, counts,
 read numbers, positions and table drops, and the reduced in-transit drops
 agree.  Every other configuration (growth, spill, ``hint_every`` > 1,
-depth 0 and 1, both widths with and without coordinates, the unstaged
-wrappers) is held to a numpy oracle: shards disjoint, each k-mer on the
-shard that dispatch names, and the union equal to the oracle's counts and
-first occurrences.  Tolerance: exact equality throughout.
+depth 0 and 1, growth then spill at depth 1, both widths with and
+without coordinates, the unstaged wrappers) is held to a numpy oracle:
+shards disjoint, each k-mer on the shard that dispatch names, and the
+union equal to the oracle's counts and first occurrences.  On one rank, a stream that stages, grows and spills
+hands a sink the spans and counters of count/stream.StreamCounter's loop.
+Tolerance: exact equality throughout.
 
 The module imports jax only inside the test functions, so that the ranks,
 which import it, start without it.
@@ -44,6 +46,7 @@ SCENARIOS = {
     "hint_every": (21, False, 1, 1 << 13, None, 3, 1.5, 7, 120),
     "wide_coords_grow": (21, True, 1, 1 << 11, 1 << 14, 1, 1.5, 12, 90),
     "overflow": (13, False, 0, 1 << 12, None, 1, 0.1, 2, 400),
+    "grow_spill": (13, False, 1, 1 << 10, 1 << 13, 1, 1.5, 90, 60),
 }
 JAX_SCENARIO = {2: "jax_u32", 4: "jax_u64"}
 
@@ -92,7 +95,7 @@ def _run_counter(mesh, name: str):
     out = dict(_shard_arrays(res), in_transit=ctr.dropped_in_transit,
                local_in_transit=int(ctr._local_dropped),
                capacity=ctr.table.capacity, finalize_raised=raised,
-               spilled=ctr.spill_stores is not None)
+               spilled=ctr.spill_store is not None)
     ctr.close()
     return out
 
@@ -174,11 +177,56 @@ def _one_rank_main(rank: int, world: int, root: str) -> None:
             table, _ = pc.sharded_stream_update(table, batch, k, mesh,
                                                 read_num_offset=offset)
         torch_ranks.save(root, name, rank, **_shard_arrays(ctr.finalize()),
-                         spilled=ctr.spill_stores is not None)
+                         spilled=ctr.spill_store is not None)
         ctr.close()
         torch_ranks.save(root, f"{name}_wrappers", rank, **_shard_arrays(
             pc.sharded_stream_finalize(table, mesh)))
+    torch_ranks.save(root, "sink", rank, **_sink_run(mesh))
     torch_ranks.leave_group()
+
+
+class ListSink:
+    """An ``obs.sink`` that keeps what it is handed."""
+
+    def __init__(self):
+        self.spans: list = []
+        self.records: list = []
+
+    def add(self, name, t0, t1):
+        self.spans.append(name)
+
+    def record(self, name, value):
+        self.records.append((name, value))
+
+
+def _sink_run(mesh) -> dict:
+    """The grow_spill scenario with a sink set: the spans' names, the
+    count.grows and count.spills readings, and the shard."""
+    from kmerutils_tpu_torch import obs
+    from kmerutils_tpu_torch.base.sequence import pack_codes
+    from kmerutils_tpu_torch.parallel import stream as ps
+    k, coords, depth, cap, cap_max, hint_every, factor = \
+        SCENARIOS["grow_spill"][:7]
+    sink = ListSink()
+    obs.sink = sink
+    try:
+        ctr = ps.ShardedStreamCounter(
+            mesh, cap, cap_max_per_device=cap_max, depth=depth,
+            shard_cap_factor=factor, hint_every=hint_every)
+        for codes, lengths, offset in scenario_batches("grow_spill", 1):
+            ctr.update(pack_codes(codes, lengths, device="cpu"), k,
+                       read_num_offset=offset)
+        got = _shard_arrays(ctr.finalize())
+    finally:
+        obs.sink = None
+    ctr.close()
+
+    def readings(name):
+        return np.array([v for n, v in sink.records if n == name], np.int64)
+    return dict(got, spans=np.array(sorted(set(sink.spans))),
+                grows=readings("count.grows"),
+                spills=readings("count.spills"),
+                n_segments=ctr.n_segments)
 
 
 @pytest.fixture(scope="module")
@@ -193,6 +241,19 @@ def test_one_rank_finalize_is_the_union(one_rank, name):
     for what in (name, f"{name}_wrappers"):
         assert_owned_union(one.results(what), name, 1)
     assert bool(one.results(name)[0]["spilled"]) == (name == "spill")
+
+
+def test_spans_and_counters_reach_the_sink(one_rank):
+    """The sharded counter runs count/stream.StreamCounter's loop: a
+    stream that stages, grows and spills hands a sink the loop's spans and
+    its growth and spill counters, and still counts exactly."""
+    [got] = one_rank.results("sink")
+    assert set(got["spans"]) == {"count.stage", "count.fold",
+                                 "count.compact"}
+    assert got["grows"].tolist() == [SCENARIOS["grow_spill"][4]]
+    assert got["spills"].size >= 1 and (got["spills"] > 0).all()
+    assert int(got["n_segments"]) == got["spills"].size + 1
+    assert_owned_union([got], "grow_spill", 1)
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=lambda n: f"ranks{n}")
@@ -262,7 +323,8 @@ def test_counter_matches_jax(ranks):
 
 
 @pytest.mark.parametrize("name", ["grow", "spill", "hint_every",
-                                  "wide_coords_grow", "jax_u32"])
+                                  "wide_coords_grow", "jax_u32",
+                                  "grow_spill"])
 def test_counter_matches_oracle(ranks, name):
     got = ranks.results(name)
     assert_owned_union(got, name, ranks.world)
@@ -276,6 +338,9 @@ def test_counter_matches_oracle(ranks, name):
         assert len({int(g["capacity"]) for g in got}) == 1
     if name == "spill":
         assert all(bool(g["spilled"]) for g in got), "never spilled"
+    if name == "grow_spill":
+        assert all(int(g["capacity"]) == cap_max and bool(g["spilled"])
+                   for g in got), "never grew to the top and spilled"
 
 
 @pytest.mark.parametrize("name", ["overflow", "jax_u64"])
