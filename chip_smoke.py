@@ -21,9 +21,11 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    ~60 Mbases, k=8, m=200) and on a 1,000-read file with k=21, through the
    CLI entry point on ``cuda``; the dumps are read back and 64 sampled
    reads of each are recomputed through the plain path on the card (the
-   plain prefix ``kmer_prefix_ref``, not KP, and the plain tournament);
+   plain prefix ``kmer_prefix_ref``, not KP, the plain weights stage
+   ``sort_weights_ref``, not KW, and the plain tournament);
    the launch counters of K1, K2 and KP, set to 0 before the two runs,
-   must show a launch a batch at least; the k=8 run is then
+   must show a launch a batch at least, and KW's one a batch of the k=8
+   run with no row on the plain route; the k=8 run is then
    repeated three times for its wall-time spread;
 6. K1/K2 timed with CUDA events against their plain versions at the row
    shapes of the paths (m=200): the bench shape (1024 reads x 6000 bases)
@@ -226,6 +228,21 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    ``KC_TIMED`` with CUDA events in turns, the enqueue time, the
    profiler's device time and the bytes bound, with ``batch_entries``'
    device time by kernel beside it.
+18. KW (``ops/weights.sort_weights``, csrc/weights.cu: each row sorted
+   and each position's run length) vs its plain version on the card, bit
+   for bit on s, winv and is_real at ``KW_SHAPES`` (KP's items of the
+   bench batch at k=8 and k=21, the block rows, the cell's median and
+   longest rows, a 3 x 16,370 tail, short rows, heavy duplicates; every
+   case with a real item equal to the sentinel, an empty row and a valid
+   mask that is not a prefix), long reads past the widest tile class (the
+   wide route), and at ``KW_WIDTHS`` (every tile class full and one
+   position past it); the route the profiler sees at the widest class
+   and one past it; timed at ``KW_TIMED`` with CUDA events against the
+   plain version and ``torch.sort(dim=1)`` alone, in turns, with the
+   enqueue time, the profiler's device time and the bytes bound; one
+   launch a ``sketch_batch`` call.  The oracles of the
+   phases before it (``plain_signatures``, ``sorted_rows``,
+   ``plain_blocks``) take the plain weights stage, not KW.
 
 With ``--baseline ROOT`` (the tree of another commit, e.g. unpacked from
 ``git archive`` into a git-ignored directory) the script runs phases 1-2,
@@ -552,11 +569,11 @@ def plain_hashed(batch, k: int, hash_name: str = "wang"):
 
 def plain_signatures(torch, codes_list, k: int, m: int, dev):
     """Signatures of the given reads through the plain path on the card
-    (same hashing and multiplicities, plain tournament), cut to u32 as the
+    (the plain prefix, weights stage and tournament), cut to u32 as the
     PROB3A dump stores them."""
     from kmerutils_tpu_torch.base.sequence import pack_codes
     from kmerutils_tpu_torch.ops import tournament as T
-    from kmerutils_tpu_torch.sketch import probminhash
+    from kmerutils_tpu_torch.ops import weights as KW
     L = max(c.size for c in codes_list)
     codes = np.zeros((len(codes_list), L), np.uint8)
     lengths = np.array([c.size for c in codes_list], np.int32)
@@ -564,7 +581,7 @@ def plain_signatures(torch, codes_list, k: int, m: int, dev):
         codes[i, : c.size] = c
     batch = pack_codes(codes, lengths, device=dev)
     items, valid = plain_hashed(batch, k)
-    s, winv, is_real = probminhash.sort_with_multiplicities(items, valid)
+    s, winv, is_real = KW.sort_weights_ref(items, valid)
     winv = torch.where(is_real, winv, 0.0).contiguous()
     if k <= 16:
         sig = T.weighted_tournament_ref(s.contiguous(), winv, m)
@@ -582,6 +599,7 @@ def slice_runs(torch, rng, tmp: str, card: str, dev,
     from kmerutils_tpu_torch.io import fastx, formats
     from kmerutils_tpu_torch.ops import kmer_prefix as KP
     from kmerutils_tpu_torch.ops import tournament as T
+    from kmerutils_tpu_torch.ops import weights as KW
     fq8 = os.path.join(tmp, "ont10k.fastq")
     fq21 = os.path.join(tmp, "ont1k.fastq")
     clean8 = write_ont_fastq(fq8, rng, n_reads[0], 7)
@@ -600,17 +618,21 @@ def slice_runs(torch, rng, tmp: str, card: str, dev,
     # --- the main path: counts from 0 to what the two CLI runs launched ---
     T.launches_u32 = T.launches_u64 = 0
     KP.launches_prefix = 0
+    KW.launches_weights = 0
     t0 = time.perf_counter()
     rc8 = datasketcher.main(["-f", fq8, "-s", "200", "-k", "8", "-d", dump8,
                              "--device", str(dev)])
     wall8 = time.perf_counter() - t0
+    kw8 = KW.launches_weights
     rc21 = datasketcher.main(["-f", fq21, "-s", "200", "-k", "21", "-d",
                               dump21, "--device", str(dev)])
     launches = {"u32": T.launches_u32, "u64": T.launches_u64,
-                "kp": KP.launches_prefix}
+                "kp": KP.launches_prefix, "kw": KW.launches_weights,
+                "kw_k8": kw8}
     # -----------------------------------------------------------------------
     print(f"launches: K1 {launches['u32']}, K2 {launches['u64']}, KP "
-          f"{launches['kp']}", flush=True)
+          f"{launches['kp']}, KW {launches['kw']} ({kw8} at k=8)",
+          flush=True)
     check(rc8 == 0 and rc21 == 0, "datasketcher returned non-zero")
     check(launches["u32"] >= n_batches8,
           f"K1 launched {launches['u32']} < {n_batches8} batches")
@@ -619,6 +641,9 @@ def slice_runs(torch, rng, tmp: str, card: str, dev,
     check(launches["kp"] >= n_batches8 + n_batches21,
           f"KP launched {launches['kp']} < {n_batches8 + n_batches21} "
           f"batches")
+    check(kw8 == n_batches8 and launches["kw"] - kw8 == n_batches21,
+          f"KW: {kw8} launches at k=8 for {n_batches8} batches, "
+          f"{launches['kw'] - kw8} at k=21 for {n_batches21}")
 
     for dump, clean, k in ((dump8, clean8, 8), (dump21, clean21, 21)):
         with open(dump, "rb") as f:
@@ -718,9 +743,10 @@ def random_batch(rng, n: int, L: int):
 
 
 def sorted_rows(torch, items, valid):
-    """The per-row sorted items and weights the sketch gives K1/K2."""
-    from kmerutils_tpu_torch.sketch import probminhash
-    s, winv, is_real = probminhash.sort_with_multiplicities(items, valid)
+    """The per-row sorted items and weights the sketch gives K1/K2, through
+    the plain weights stage (not KW)."""
+    from kmerutils_tpu_torch.ops import weights as KW
+    s, winv, is_real = KW.sort_weights_ref(items, valid)
     return s.contiguous(), torch.where(is_real, winv, 0.0).contiguous()
 
 
@@ -1978,11 +2004,11 @@ def k7_against_baseline(torch, rng, card: str, bounds: Bounds,
 
 def plain_blocks(torch, codes_list, k: int, m: int, bs: int, dev):
     """Per read, its live blocks' signatures (u32[n_live, m]) through the
-    plain path on the card: same hashing, per-block multiplicities, plain
-    tournament (k <= 16)."""
+    plain path on the card: the plain prefix, per-block plain weights
+    stage, plain tournament (k <= 16)."""
     from kmerutils_tpu_torch.base.sequence import pack_codes
     from kmerutils_tpu_torch.ops import tournament as T
-    from kmerutils_tpu_torch.sketch import probminhash
+    from kmerutils_tpu_torch.ops import weights as KW
     L = max(c.size for c in codes_list)
     codes = np.zeros((len(codes_list), L), np.uint8)
     for i, c in enumerate(codes_list):
@@ -1995,7 +2021,7 @@ def plain_blocks(torch, codes_list, k: int, m: int, bs: int, dev):
     pad = torch.nn.functional.pad
     items = pad(items, (0, nb * bs - P)).reshape(n * nb, bs)
     valid = pad(valid, (0, nb * bs - P)).reshape(n * nb, bs)
-    s, winv, is_real = probminhash.sort_with_multiplicities(items, valid)
+    s, winv, is_real = KW.sort_weights_ref(items, valid)
     sig = T.weighted_tournament_ref(
         s.contiguous(), torch.where(is_real, winv, 0.0).contiguous(), m)
     sig = sig.cpu().numpy().view(np.uint32).reshape(n, nb, m)
@@ -4176,6 +4202,241 @@ def count_prefix_phase(torch, rng, card: str, dev="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 18: KW, the weights stage of ProbMinHash
+# ---------------------------------------------------------------------------
+
+KW_SOURCE = "kmerutils_tpu_torch/csrc/weights.cu"
+KW_JAX = "kmerutils_tpu/sketch/probminhash.py:178"
+# (name, items): ("kp", rows, width, lengths, k) hashes a packed batch
+# through KP; ("drawn", rows, P, wide, alphabet) draws items of any value
+# (alphabet 0) or of a few values near the top of the range; every case
+# then gets a real item equal to the sentinel, an empty row and a valid
+# mask that is not a prefix (kw_plant)
+KW_SHAPES = (("bench_k8", ("kp", 1024, 6000, "ragged", 8)),
+             ("bench_k21", ("kp", 1024, 6000, "ragged", 21)),
+             ("block", ("kp", 16384, 512, "full", 8)),
+             ("cell_median", ("kp", 1024, 6144, "full", 8)),
+             ("cell_long", ("kp", 512, 16384, "full", 8)),
+             ("tail", ("drawn", 3, 16370, False, 0)),
+             ("short_rows", ("kp", 9, 40, (40, 40, 40, 0, 1, 7, 15, 16, 20),
+                             8)),
+             ("duplicates_k8", ("drawn", 1024, 5993, False, 5)),
+             ("duplicates_k21", ("drawn", 1024, 5980, True, 5)),
+             ("duplicates_long", ("drawn", 64, 16377, False, 40)),
+             ("long_reads", ("kp", 256, 40000, "ragged", 8)),
+             ("long_reads_k21", ("kp", 128, 40000, "ragged", 21)),
+             ("wide_duplicates", ("drawn", 16, 70000, False, 5)),
+             ("wide_tail", ("drawn", 3, 100000, True, 0)))
+KW_TIMED = ("bench_k8", "bench_k21", "block", "cell_median", "cell_long",
+            "tail", "long_reads", "long_reads_k21")
+# the widest row of a tile class (csrc/weights.cu), by wide (int64): rows
+# past it take the wide route (csrc/weights_wide.cu)
+KW_WIDEST = {False: 16384, True: 8192}
+# widths at and one past each tile class's, and well past the widest
+KW_WIDTHS = {False: (512, 513, 1024, 1025, 2048, 2049, 3072, 3073, 4096,
+                     4097, 6144, 6145, 8192, 8193, 12288, 12289, 16384,
+                     16385, 40000),
+             True: (512, 513, 2048, 2049, 4096, 4097, 8192, 8193, 20000)}
+
+
+def kw_plant(torch, rng, items, valid):
+    """Row 0 gets a valid item equal to the all-ones sentinel, row 1 no
+    valid position, row 2 a random valid mask (not a prefix)."""
+    n, P = items.shape
+    items[0, min(3, P - 1)] = -1
+    valid[0, min(3, P - 1)] = True
+    if n > 1:
+        valid[1] = False
+    if n > 2:
+        valid[2] = torch.as_tensor(rng.random(P) < 0.5, device=valid.device)
+    return items, valid
+
+
+def kw_items(torch, rng, spec, dev="cuda"):
+    """(items, valid) of a KW_SHAPES spec on ``dev``."""
+    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
+    if spec[0] == "kp":
+        _, n, L, lengths, k = spec
+        items, valid = hashed_kmers(kp_batch(rng, n, L, lengths, dev), k)
+    else:
+        _, n, P, wide, alphabet = spec
+        ut = np.uint64 if wide else np.uint32
+        top = np.iinfo(ut).max
+        if alphabet:
+            pool = top - rng.integers(0, 4 * alphabet, size=alphabet,
+                                      dtype=np.int64).astype(ut)
+            x = rng.choice(pool, size=(n, P))
+        else:
+            x = rng.integers(0, top, size=(n, P), dtype=ut, endpoint=True)
+        items = torch.as_tensor(x.view(np.int64 if wide else np.int32),
+                                device=dev)
+        lens = rng.integers(0, P + 1, size=n)
+        valid = torch.as_tensor(np.arange(P)[None, :] < lens[:, None],
+                                device=dev)
+    return kw_plant(torch, rng, items.clone(), valid.clone())
+
+
+def kw_same(torch, got, want) -> bool:
+    """Bit for bit: s, winv (as int32 words) and is_real."""
+    return (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+            and torch.equal(got[1].view(torch.int32),
+                            want[1].view(torch.int32)))
+
+
+def kw_check(torch, items, valid, what: str) -> None:
+    from kmerutils_tpu_torch.ops import weights as KW
+    got = KW.sort_weights(items, valid)
+    want = KW.sort_weights_ref(items, valid)
+    sync(torch, items.device)
+    check(kw_same(torch, got, want),
+          f"KW != plain at {what} {tuple(items.shape)} {items.dtype}: "
+          f"{[int((g != w).sum()) for g, w in zip(got, want)]} positions "
+          "of s, winv, is_real differ")
+
+
+def kw_kernels(torch, fn, calls: int = 20) -> dict:
+    """Device ms a call of each kernel that ``calls`` calls of ``fn`` (a
+    KW call) ran, by short name, under torch.profiler.  The profiler can
+    lose the first events of a session late in a long process: a session
+    that kept fewer than half of the calls' last KW kernel
+    (sort_weights_kernel, or sort_weights_runs_kernel on the wide route)
+    is run again, at most twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ms: dict = {}
+        kept = 0
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            name = short_name(ev.name)
+            ms[name] = ms.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+            kept += name.startswith(("sort_weights_kernel",
+                                     "sort_weights_runs_kernel"))
+        if kept >= calls // 2:
+            break
+        print(f"the profiler kept {kept} KW events of {calls} calls; "
+              f"profiling again", flush=True)
+    check(calls // 2 <= kept <= calls,
+          f"KW profile: {kept} events of {sorted(ms)} for {calls} calls")
+    return {name: t / kept for name, t in sorted(ms.items(),
+                                                 key=lambda x: -x[1])}
+
+
+def kw_route(kernels: dict) -> str:
+    """The route of a KW call from its kernels (kw_kernels): "tile"
+    (sort_weights_kernel alone) or "wide" (sort_weights_keys_kernel,
+    CUB's segmented sort and sort_weights_runs_kernel)."""
+    names = {n.split("<")[0] for n in kernels}
+    ours = {n for n in names if n.startswith("sort_weights")}
+    if ours == names == {"sort_weights_kernel"}:
+        return "tile"
+    if ours == {"sort_weights_keys_kernel", "sort_weights_runs_kernel"}:
+        return "wide"
+    return f"unknown {sorted(names)}"
+
+
+def weights_phase(torch, rng, card: str, dev="cuda") -> dict:
+    """Phase 18: KW exact against its plain version at ``KW_SHAPES`` and at
+    ``KW_WIDTHS`` (every tile class full and one position past it, and the
+    wide route), the route at the widest class and one past it; timed at
+    ``KW_TIMED`` against the plain version and ``torch.sort(dim=1)``; its
+    launch counter against ``sketch_batch`` calls."""
+    from kmerutils_tpu_torch import roofline
+    from kmerutils_tpu_torch.ops import weights as KW
+    from kmerutils_tpu_torch.sketch.jaccard import Sketcher
+    from kmerutils_tpu_torch.sketch.params import SeqSketcherParams
+    phase("18 KW (the weights stage) vs plain (exact) and timing")
+    t_phase = time.perf_counter()
+    launches0 = KW.launches_weights
+    cases = {name: kw_items(torch, rng, spec, dev)
+             for name, spec in KW_SHAPES}
+    n_checks = 0
+    for name, (items, valid) in cases.items():
+        kw_check(torch, items, valid, name)
+        n_checks += 1
+    for wide in (False, True):
+        for i, P in enumerate(KW_WIDTHS[wide]):
+            items, valid = kw_items(
+                torch, rng, ("drawn", 48, P, wide, 3 if i % 2 else 0), dev)
+            kw_check(torch, items, valid, f"width {P}")
+            n_checks += 1
+    routes = {}
+    for wide in (False, True):
+        for P in (KW_WIDEST[wide], KW_WIDEST[wide] + 1):
+            items, valid = kw_items(torch, rng, ("drawn", 8, P, wide, 7),
+                                    dev)
+            routes[f"{'u64' if wide else 'u32'} P={P}"] = route = \
+                kw_route(kw_kernels(torch, functools.partial(
+                    KW.sort_weights, items, valid)))
+            check(route == ("tile" if P <= KW_WIDEST[wide] else "wide"),
+                  f"KW at P={P} wide={wide} took the {route} route")
+    launches = KW.launches_weights - launches0
+    check(launches >= n_checks,
+          f"KW: {launches} launches for {n_checks} checked calls")
+    print(f"KW: {n_checks} cases equal to the plain version, {launches} "
+          f"launches, routes {routes}", flush=True)
+    out = {"checks": n_checks, "shapes": {}, "routes": routes}
+    for name in KW_TIMED:
+        items, valid = cases[name]
+        n, P = items.shape
+        kern = functools.partial(KW.sort_weights, items, valid)
+        plain = functools.partial(KW.sort_weights_ref, items, valid)
+        lib = functools.partial(torch.sort, items, dim=1)
+        l1 = cuda_ms(torch, lib, 20)
+        ms, pms, runs = turns(torch, kern, plain, iters=100, plain_iters=10)
+        l2 = cuda_ms(torch, lib, 20)
+        isz = items.element_size()
+        nbytes = n * P * (2 * isz + 1 + 4 + 1)
+        bound = roofline.bound(nbytes)
+        if P <= KW_WIDEST[items.dtype == torch.int64]:
+            route = "tile"
+            dms = merge_profile(torch, kern, 50,
+                                "sort_weights_kernel")["device_ms"]
+            split = None
+        else:
+            route = "wide"
+            split = kw_kernels(torch, kern)
+            dms = sum(split.values())
+        r = {"timing": f"kw_{name}", "rows": n, "P": P,
+             "dtype": str(items.dtype), "route": route,
+             "ms_plain_kern_kern_plain": runs, "library_ms": [l1, l2],
+             "enqueue_ms": enqueue_ms(torch, kern, iters=200),
+             "device_ms": dms, "device_ms_by_kernel": split,
+             "bytes": nbytes, "bound_ms": bound[0], "bound_by": bound[1],
+             "bound_share_device": bound[0] / dms,
+             "gpos_per_s": n * P / dms / 1e6}
+        print(json.dumps({**r, "card": card}), flush=True)
+        out["shapes"][name] = {
+            "ms": ms, "plain_ms": pms, "bound_ms": bound[0],
+            "device_ms": dms, "enqueue_ms": r["enqueue_ms"],
+            "library_ms": min(l1, l2)}
+    # the main path: one launch a sketch_batch call
+    bench = kp_batch(rng, 1024, 6000, "ragged", dev)
+    before = KW.launches_weights
+    for k in (8, 21):
+        Sketcher(SeqSketcherParams(kmer_size=k, sketch_size=200)
+                 ).sketch_batch(bench)
+    sync(torch, dev)
+    check(KW.launches_weights - before == 2,
+          f"sketch_batch: {KW.launches_weights - before} KW launches for 2 "
+          f"calls")
+    out["launches"] = KW.launches_weights - launches0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"timing": "phase18_s", "card": card,
+                      "launches": out["launches"],
+                      "total": out["seconds"]}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --baseline: K1-K7 and G1/G2 of this tree against another tree's, in
 # turns
 # ---------------------------------------------------------------------------
@@ -4513,6 +4774,8 @@ def main(argv=None) -> int:
             kp = kmer_prefix_phase(torch, rng, card)
             torch.cuda.empty_cache()
             kc = count_prefix_phase(torch, rng, card)
+            torch.cuda.empty_cache()
+            kw = weights_phase(torch, rng, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4613,6 +4876,19 @@ def main(argv=None) -> int:
         **{f"{k}_each_shape": {s: r[k] for s, r in kc["shapes"].items()}
            for k in ("ms", "plain_ms", "bound_ms", "device_ms",
                      "batch_entries_device_ms")}})
+    kw_cell = kw["shapes"]["cell_median"]
+    kernels.append({
+        "name": "sort_weights", "route": "cuda", "source": KW_SOURCE,
+        "replaces": None, "jax_function": KW_JAX,
+        "launches": launches["kw"], "launches_phase18": kw["launches"],
+        "mismatches": 0, "max_abs_err": 0,
+        "ms": kw_cell["ms"], "plain_ms": kw_cell["plain_ms"],
+        "bound_ms": kw_cell["bound_ms"], "bound_by": "bytes",
+        "library_ms": kw_cell["library_ms"],
+        "device_ms": kw_cell["device_ms"],
+        **{f"{k}_each_shape": {s: r[k] for s, r in kw["shapes"].items()}
+           for k in ("ms", "plain_ms", "bound_ms", "device_ms",
+                     "library_ms")}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -115,6 +115,12 @@ def _declare(lib) -> None:
     lib.launch_count_prefix.restype = ci
     lib.launch_count_prefix.argtypes = [vp, vp, vp, vp, ll, ll, ll, ci, ll,
                                         ll, vp]
+    # csrc/weights.cu
+    lib.sort_weights_scratch_bytes.restype = ll
+    lib.sort_weights_scratch_bytes.argtypes = [ci, ll, ll]
+    lib.launch_sort_weights.restype = ci
+    lib.launch_sort_weights.argtypes = [ci, vp, vp, vp, vp, vp, ll, ll, vp,
+                                        ll, vp]
 
 
 def launch(fn, *args, device) -> None:

@@ -33,7 +33,7 @@ from ..base import kmer as kmer_mod
 from ..base.sequence import ReadBatch
 from ..ops import merge
 from ..ops.bitops import M32, flip64, u32_to_i32
-from ..sketch.probminhash import _run_multiplicities
+from ..ops.weights import _run_multiplicities
 
 
 def sentinel_of(dtype: torch.dtype) -> int:

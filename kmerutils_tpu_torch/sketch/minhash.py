@@ -18,8 +18,8 @@ import torch
 from ..ops.bitops import M32, as_u64, flip64, s64
 from ..ops.rng import splitmix64, wang_hash32, wang_hash32_inv, \
     wang_hash64, wang_hash64_inv
+from ..ops.weights import _run_multiplicities
 from .jaccard import _host_unsigned
-from .probminhash import _run_multiplicities
 
 SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
 _SENTINEL64 = -1     # its int64 bit pattern

@@ -5,7 +5,8 @@ argmin over its items x of E_s(x) = -ln(U(x, s)) / weight(x), a pure
 function of (item, slot), so P(sig_A[s] == sig_B[s]) is the Probability
 Jaccard of the two weighted sets.  Weights are within-read multiplicities:
 one sort per row groups duplicates and two scans (cummax, flipped cummin)
-give each position its run length.  The argmin itself is the tournament
+give each position its run length (ops/weights.py: CUDA kernel KW on the
+card, plain PyTorch on the CPU).  The argmin itself is the tournament
 (ops/tournament.py: CUDA kernels K1/K2 on the card, plain PyTorch on the
 CPU).
 
@@ -23,12 +24,11 @@ from .. import obs
 from ..ops import tournament
 from ..ops.bitops import M32
 from ..ops.tournament import slot_consts as _slot_consts  # noqa: F401
-
-_SIGN = {torch.int32: -(1 << 31), torch.int64: -(1 << 63)}
+from ..ops.weights import SIGN, sort_weights
 
 
 def _is_wide(items: torch.Tensor) -> bool:
-    if items.dtype not in _SIGN:
+    if items.dtype not in SIGN:
         raise ValueError(f"items must be int32 (u32) or int64 (u64), "
                          f"got {items.dtype}")
     return items.dtype == torch.int64
@@ -73,38 +73,6 @@ def probminhash_signatures(items: torch.Tensor, weights: torch.Tensor,
     return _tournament(items, winv, valid, m, seed)
 
 
-def _run_multiplicities(sorted_items: torch.Tensor,
-                        is_real: torch.Tensor) -> torch.Tensor:
-    """Per-position run length of sorted rows via two scans."""
-    n, P = sorted_items.shape
-    dev = sorted_items.device
-    new_run = torch.ones((n, P), dtype=torch.bool, device=dev)
-    new_run[:, 1:] = sorted_items[:, 1:] != sorted_items[:, :-1]
-    new_run &= is_real
-    idx = torch.arange(P, dtype=torch.int64, device=dev).expand(n, P)
-    start = torch.cummax(torch.where(new_run, idx, -1), dim=1).values
-    # sentinels end the preceding run too, else the last real run would
-    # absorb the padding into its length
-    nxt = torch.where(new_run | ~is_real, idx, P)
-    rev_min = torch.cummin(nxt.flip(1), dim=1).values.flip(1)  # min, q >= p
-    next_start = torch.full((n, P), P, dtype=torch.int64, device=dev)
-    next_start[:, :-1] = rev_min[:, 1:]                         # min, q > p
-    return next_start - start
-
-
-def sort_with_multiplicities(items: torch.Tensor, valid: torch.Tensor):
-    """(sorted items, 1 / multiplicity float32, is_real) per row: invalid
-    positions become the all-ones sentinel and sort last (unsigned order,
-    via a sign flip)."""
-    _is_wide(items)                                # validates the dtype
-    sign = _SIGN[items.dtype]
-    s = torch.where(valid, items, -1)              # -1 == all-ones sentinel
-    s = torch.sort(s ^ sign, dim=1).values ^ sign
-    is_real = s != -1
-    w = _run_multiplicities(s, is_real)
-    return s, 1.0 / w.clamp(min=1).to(torch.float32), is_real
-
-
 def probminhash_from_items(items: torch.Tensor, valid: torch.Tensor, m: int,
                            heavy_cap: int = 0, seed: int = 0):
     """Signatures with the weights derived from the items themselves: the
@@ -115,7 +83,7 @@ def probminhash_from_items(items: torch.Tensor, valid: torch.Tensor, m: int,
     ``sketch.weights`` and ``sketch.draw``, each over n x P positions."""
     work, dev = items.numel(), items.device
     with obs.span("sketch.weights", work, dev) as weights:
-        s, winv, is_real = sort_with_multiplicities(items, valid)
+        s, winv, is_real = sort_weights(items, valid)
     with obs.span("sketch.draw", work, dev, after=weights):
         return _tournament(s, winv, is_real, m, seed)
 

@@ -18,6 +18,7 @@ from kmerutils_tpu.sketch import jaccard as jjac
 from kmerutils_tpu.sketch import probminhash as jpmh
 from kmerutils_tpu.sketch.params import SeqSketcherParams as JParams
 from kmerutils_tpu_torch.base import sequence as tseq
+from kmerutils_tpu_torch.ops.weights import sort_weights
 from kmerutils_tpu_torch.sketch import jaccard as tjac
 from kmerutils_tpu_torch.sketch import probminhash as tpmh
 from kmerutils_tpu_torch.sketch.params import SeqSketcherParams
@@ -81,8 +82,7 @@ def items_case(seed: int, wide: bool):
 @pytest.mark.parametrize("wide", [False, True])
 def test_run_multiplicities_match_jax(wide):
     items, valid = items_case(1, wide)
-    s, winv, is_real = tpmh.sort_with_multiplicities(
-        to_torch(items), torch.from_numpy(valid))
+    s, winv, is_real = sort_weights(to_torch(items), torch.from_numpy(valid))
     sent = np.uint64(2**64 - 1) if wide else np.uint32(0xFFFFFFFF)
     js = np.sort(np.where(valid, items, sent), axis=1)
     assert (to_numpy(s) == js).all()
