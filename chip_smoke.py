@@ -231,8 +231,9 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
 18. KW (``ops/weights.sort_weights``, csrc/weights.cu: each row sorted
    and each position's run length) vs its plain version on the card, bit
    for bit on s, winv and is_real at ``KW_SHAPES`` (KP's items of the
-   bench batch at k=8 and k=21, the block rows, the cell's median and
-   longest rows, a 3 x 16,370 tail, short rows, heavy duplicates; every
+   bench batch at k=8 and k=21, the block rows, the k=8 cell's median and
+   longest rows, the k=21 cell's rows of 12,268 and 16,364 positions, a
+   3 x 16,370 tail, short rows, heavy duplicates; every
    case with a real item equal to the sentinel, an empty row and a valid
    mask that is not a prefix), long reads past the widest tile class (the
    wide route), and at ``KW_WIDTHS`` (every tile class full and one
@@ -4223,20 +4224,24 @@ KW_SHAPES = (("bench_k8", ("kp", 1024, 6000, "ragged", 8)),
              ("duplicates_k8", ("drawn", 1024, 5993, False, 5)),
              ("duplicates_k21", ("drawn", 1024, 5980, True, 5)),
              ("duplicates_long", ("drawn", 64, 16377, False, 40)),
+             ("cell_k21_12k", ("kp", 512, 12288, "ragged", 21)),
+             ("cell_k21_16k", ("kp", 512, 16384, "ragged", 21)),
              ("long_reads", ("kp", 256, 40000, "ragged", 8)),
              ("long_reads_k21", ("kp", 128, 40000, "ragged", 21)),
              ("wide_duplicates", ("drawn", 16, 70000, False, 5)),
              ("wide_tail", ("drawn", 3, 100000, True, 0)))
 KW_TIMED = ("bench_k8", "bench_k21", "block", "cell_median", "cell_long",
-            "tail", "long_reads", "long_reads_k21")
+            "tail", "cell_k21_12k", "cell_k21_16k", "long_reads",
+            "long_reads_k21")
 # the widest row of a tile class (csrc/weights.cu), by wide (int64): rows
 # past it take the wide route (csrc/weights_wide.cu)
-KW_WIDEST = {False: 16384, True: 8192}
+KW_WIDEST = {False: 16384, True: 16384}
 # widths at and one past each tile class's, and well past the widest
 KW_WIDTHS = {False: (512, 513, 1024, 1025, 2048, 2049, 3072, 3073, 4096,
                      4097, 6144, 6145, 8192, 8193, 12288, 12289, 16384,
                      16385, 40000),
-             True: (512, 513, 2048, 2049, 4096, 4097, 8192, 8193, 20000)}
+             True: (512, 513, 2048, 2049, 4096, 4097, 8192, 8193, 12288,
+                    12289, 16384, 16385, 20000)}
 
 
 def kw_plant(torch, rng, items, valid):

@@ -67,7 +67,12 @@ typedef unsigned long long u64;
 // threads, 4-32 keys a thread, 4-6 radix bits): within 6 % of the fastest
 // at every width, 1.3 % over the cell's mix of widths, with CUB's default
 // 4 radix bits.  The 64-bit classes (k > 16) double from 512 to 8,192
-// positions: a row's tile is at most twice its width.  Each class pays for
+// positions, then hold 12,288 and 16,384: a row's tile is at most twice its
+// width.  The two widest come from a sweep at the k=21 sketch cell's widths
+// on an H100 (512 rows of 12,268 and of 16,364 positions; 384-1,024
+// threads, 12-32 keys a thread): 384 x 32 took 0.278 ms at 12,268 (the
+// other shapes 0.329-0.515, the wide route 0.867) and 512 x 32 0.399 ms at
+// 16,364 (1,024 x 16 0.538, the wide route 1.144).  Each class pays for
 // itself: without the 1,024 one, KW took 2.0x as long at P = 700 and
 // 1,000 on an H100.
 template <int T, int I>
@@ -81,7 +86,7 @@ using Tiles32 = Tiles<Tile<64, 8>, Tile<128, 8>, Tile<128, 16>, Tile<256, 12>,
                       Tile<256, 16>, Tile<512, 12>, Tile<512, 16>,
                       Tile<768, 16>, Tile<512, 32>>;
 using Tiles64 = Tiles<Tile<64, 8>, Tile<128, 8>, Tile<256, 8>, Tile<256, 16>,
-                      Tile<512, 16>>;
+                      Tile<512, 16>, Tile<384, 32>, Tile<512, 32>>;
 
 template <typename K, int kT, int kIpt>
 struct Weights {

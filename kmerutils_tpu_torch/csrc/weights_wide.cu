@@ -1,8 +1,9 @@
 // KW's route for rows wider than every tile class of weights.cu (16,384
-// positions at 32 bits, 8,192 at 64): the same s, winv and is_real, bit
-// for bit, for any P.  Such rows come from long reads (a batch is padded
-// to its longest), not from the sketch cell, whose widest row is 16,377
-// positions at 32 bits.  A chunk of rows takes three launches:
+// positions at 32 and at 64 bits): the same s, winv and is_real, bit for
+// bit, for any P.  Such rows come from long reads (a batch is padded to
+// its longest), not from the sketch cells, whose widest rows are 16,377
+// positions at k=8 and 16,364 at k=21.  A chunk of rows takes three
+// launches:
 //
 //   sort_weights_keys_kernel  each key (the item where valid, else the
 //                             all-ones sentinel) into the scratch, and the

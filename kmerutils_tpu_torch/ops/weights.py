@@ -16,15 +16,19 @@ position's item (at padding, the plain version's own values); and
 The device of the inputs picks the implementation: a CUDA tensor launches
 the hand-written kernel (built on first use by _build.py), which takes one
 block a row of the narrowest tile class that holds P, or, for rows wider
-than every class (16,384 positions at int32, 8,192 at int64), its wide
+than every class (16,384 positions, at int32 and at int64), its wide
 route (csrc/weights_wide.cu: a segmented sort and a galloping run search);
 a CPU tensor runs the plain PyTorch version :func:`sort_weights_ref`,
-which is also what the kernel is checked against on the card.
+which is also what the kernel is checked against on the card.  Each
+launch reads the counter ``sketch.weights_wide`` (``obs.count``): the
+positions it handed to the wide route, 0 on the tile route.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .. import obs
 
 # the sign bit of each item dtype: the plain version sorts unsigned items
 # as signed ones with it flipped
@@ -72,6 +76,7 @@ def sort_weights(items: torch.Tensor, valid: torch.Tensor):
         raise RuntimeError(f"sort_weights: no scratch size for {n} x {P}")
     scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
                if nbytes else None)
+    count_wide(n, P, nbytes)
     _build.launch(lib.launch_sort_weights, wide, items.data_ptr(),
                   valid.data_ptr(), s.data_ptr(), winv.data_ptr(),
                   is_real.data_ptr(), n, P,
@@ -79,6 +84,13 @@ def sort_weights(items: torch.Tensor, valid: torch.Tensor):
                   device=dev)
     launches_weights += 1
     return s, winv, is_real
+
+
+def count_wide(n: int, P: int, scratch_bytes: int) -> None:
+    """Counter ``sketch.weights_wide`` of one launch of n rows of P
+    positions: n x P when it takes the wide route (the only route that asks
+    for scratch), else 0; nothing while ``obs.sink`` is None."""
+    obs.count("sketch.weights_wide", n * P if scratch_bytes else 0)
 
 
 def sort_weights_ref(items: torch.Tensor, valid: torch.Tensor):
