@@ -16,6 +16,17 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    all-invalid rows and an all-invalid range inside a split row; two
    items built through the inverse of mix32 that draw u = 1 in one slot,
    and runs of repeated items);
+   then K1 at the k=8 sketch cell's row rungs (``K1_RUNGS``: 1024 x 5993,
+   1600 x 5232, 520 x 16,000, 3 x 16,377), rows of random reads through
+   the plain prefix and weights stage (~80-92 % of the needed draws at
+   weight 1) with the ties of row 0 planted, both payload modes, the
+   first rung also at m = 13 and 1 with an all-invalid row and an
+   all-invalid range wider than a tile;
+   K1's weight-1 test (``k1_threshold_check``): f(t) = logf((t + 1) *
+   2^-24) of the kernels' own logf is monotone non-decreasing over all
+   2^24 values of t, and K1's threshold of every f(t), of f(t) at weights
+   1/2, 1/3 and 1/5 and of f(t) one ulp lower is the smallest t' with
+   f(t') at or above it;
 4. K2 (weighted_tournament_u64) vs its plain version: the same shapes;
 5. the slice: ``datasketcher`` on a seeded ONT-like FASTQ (10,000 reads,
    ~60 Mbases, k=8, m=200) and on a 1,000-read file with k=21, through the
@@ -31,11 +42,13 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    shapes of the paths (m=200): the bench shape (1024 reads x 6000 bases)
    with K1 at k=8 and K2 at k=21, beside the whole
    ``Sketcher.sketch_batch``; the block rows of an 8 Mi-base batch (16,384
-   x 512, k=8); a tail batch of three 16,384-base reads (k=8); each with
+   x 512, k=8); a tail batch of three 16,384-base reads (k=8); K1 at the
+   k=8 cell's other two rungs (1600 x 5232, 520 x 16,000); each with
    the host time to enqueue one call and its bound
-   (kmerutils_tpu_torch/roofline.py: the draws the inputs need x the
-   fewest SASS instructions per draw of the tournament kernels, counted in
-   phase 2, over the card's issue rate);
+   (kmerutils_tpu_torch/roofline.py: K2's needed draws x the SASS
+   instructions a draw of K2's own loop; K1's draws through logf, counted
+   by its counter, x its exact loop's and the rest x its rejecting loop's,
+   both counted in phase 2; over the card's issue rate);
 7. K5 (merge_sorted), K3 (merge_fold), K4 (aggregate_fold) and K6
    (aggregate_compact) vs their plain versions on the card, exact, at the
    counting path's shapes (two 8 Mi-entry runs; an 8 Mi-entry batch into
@@ -351,8 +364,10 @@ def environment(torch) -> str:
 
 
 def build() -> dict:
-    """Builds the kernels; returns the SASS instructions per draw of the
-    tournament kernels ("u32": K1, "u64": K2)."""
+    """Builds the kernels; returns the SASS counts of the tournament
+    kernels ("u32": K1, "u32_pos": K1 positions mode, "u64": K2; each
+    roofline.tournament_instructions_per_draw's record, K1's with its
+    rejecting and exact loops)."""
     phase("2 build")
     from kmerutils_tpu_torch import _build
     t0 = time.perf_counter()
@@ -370,11 +385,20 @@ def build() -> dict:
         # K2; K1 with item payloads (the sketch's); K1 positions mode
         kind = ("u64" if "ILb1E" in name else
                 "u32" if "ILb0ELb1E" in name else "u32_pos")
-        ipd[kind] = r["instructions_per_draw"]
+        ipd[kind] = r
         print(f"SASS {name[:60]}: inner loop {r['instructions']} "
               f"instructions for {r['draws']} draws")
+        if "reject" in r:
+            rj = r["reject"]
+            print(f"  rejecting loop {rj['range']}: {rj['straight']} "
+                  f"instructions for {rj['straight_draws']} draws when "
+                  f"none passes ({r['reject_per_draw']:.3f} a draw; "
+                  f"{rj['instructions']} with the pass region); exact loop "
+                  f"{r['exact']['range']}: {r['exact_per_draw']:.3f} a draw")
     check(set(ipd) == {"u32", "u32_pos", "u64"},
-          f"tournament SASS not found: {ipd}")
+          f"tournament SASS not found: {list(ipd)}")
+    check("reject" in ipd["u32"] and "reject" in ipd["u32_pos"],
+          "K1's rejecting and exact loops not found in the SASS")
     return ipd
 
 
@@ -501,6 +525,105 @@ def k1_vs_plain(torch, rng, dev) -> int:
                 check(draws_one(x, sc), "K1: no u = 1 draw won its slot")
         del it, wv, got, want
     return worst
+
+
+# the k=8 sketch cell's row rungs (rows x positions): its median, widest-
+# row and tail batches, and the 1024-read bench batch
+K1_RUNGS = ((1024, 5993), (1600, 5232), (520, 16_000), (3, 16_377))
+
+
+def rung_rows(torch, rng, n: int, P: int):
+    """K1's inputs as the sketch gives them for n random reads of P + 7
+    bases at k=8: sorted rows and 1 / multiplicity weights (the plain
+    prefix and weights stage), as numpy arrays."""
+    s, w = rung(torch, rng, n, P)
+    return (s.cpu().numpy().view(np.uint32).astype(np.uint64),
+            w.cpu().numpy())
+
+
+def rung(torch, rng, n: int, P: int):
+    """Sorted k=8 rows and weights of n random reads of P + 7 bases, cut
+    to the P positions (the packing pads a read to whole words)."""
+    s, w = sorted_rows(torch, *plain_hashed(random_batch(rng, n, P + 7), 8))
+    return s[:, :P].contiguous(), w[:, :P].contiguous()
+
+
+def k1_rungs_vs_plain(torch, rng, dev) -> int:
+    """K1 against its plain version at K1_RUNGS (m = 200; the first rung
+    also at m = 13 and 1, with an all-invalid row and an all-invalid range
+    wider than a tile's span), row 0's ties planted, both payload
+    modes."""
+    from kmerutils_tpu_torch.ops import tournament as T
+    worst = 0
+    for (n, P), ms in zip(K1_RUNGS, ((200, 13, 1), (200,), (200,), (200,))):
+        items, winv = rung_rows(torch, rng, n, P)
+        if n > 2:
+            winv[1, :] = 0.0
+            winv[2, P // 6: P // 6 + 2100] = 0.0
+        need = winv > 0
+        ones = float((winv == 1.0).sum() / max(1, need.sum()))
+        for m in ms:
+            sc = plant_ties(items, winv, m, 7, wide=False)
+            it, wv = as_i32(items, dev), torch.from_numpy(winv).to(dev)
+            for pos in (False, True):
+                got = T.weighted_tournament(it, wv, m, seed=7,
+                                            return_positions=pos)
+                want = T.weighted_tournament_ref(it, wv, m, seed=7,
+                                                 return_positions=pos)
+                sync(torch, dev)
+                worst = max(worst, max_abs_err(got, want))
+                print(f"K1 rung {n} x {P} m={m} positions={pos} (weight 1: "
+                      f"{100 * ones:.1f} % of the valid positions): "
+                      f"{int((got != want).sum())} mismatches", flush=True)
+                check(torch.equal(got, want), f"K1 != plain (rung {n} x "
+                      f"{P}, m={m}, positions={pos})")
+                if n > 2:
+                    check(bool((got[1] == 0).all()),
+                          "K1 all-invalid row != 0")
+                win = int(got[0, 3 % m]) & 0xFFFFFFFF
+                check(draws_one(int(items[0, win]) if pos else win, sc),
+                      "K1: no u = 1 draw won its slot")
+            del it, wv, got, want
+    return worst
+
+
+def k1_threshold_check(torch, dev="cuda") -> dict:
+    """K1's weight-1 test over every t = h >> 8: f(t) of the kernels'
+    logf is monotone non-decreasing, and the kernel's threshold of a best
+    draw e is the smallest t with f(t) >= e (torch.searchsorted over f),
+    for e = f(t), f(t) at weights 1/2, 1/3 and 1/5, f(t) one ulp lower and
+    the ends.  Also counts where f differs from torch.log on the card (the
+    plain version's log)."""
+    phase("3a K1's weight-1 threshold (exhaustive over 2^24)")
+    from kmerutils_tpu_torch.ops import tournament as T
+    t0 = time.perf_counter()
+    f = T.unit_logs(dev)
+    t = torch.arange(1 << 24, device=dev)
+    plain = torch.log(t.to(torch.float32) * 2.0**-24 + 2.0**-24)
+    d = f[1:] - f[:-1]
+    res = {"decreasing": int((d < 0).sum()), "plateaus": int((d == 0).sum()),
+           "f_ne_torch_log": int((f != plain).sum()),
+           "f0": float(f[0]), "f_last": float(f[-1])}
+    check(res["decreasing"] == 0, f"logf is not monotone: {res}")
+    check(res["f_last"] == 0.0, f"logf(1) != 0: {res}")
+    cases = {"weight1": f, "w/2": f * 0.5, "w/3": f * np.float32(1 / 3),
+             "w/5": f * np.float32(0.2),
+             "ulp_below": torch.nextafter(f, torch.full_like(f, -np.inf)),
+             "ends": torch.tensor([-np.inf, 0.0, -0.0, -1e-30, -3.4e38,
+                                   float(f[0]), float(f[1])],
+                                  dtype=torch.float32, device=dev)}
+    for name, e in cases.items():
+        got = T.unit_thresholds(e)
+        want = torch.searchsorted(f, e, side="left").clamp(max=(1 << 24) - 1)
+        bad = int((got != want).sum())
+        res[name] = bad
+        check(bad == 0, f"K1 threshold != smallest t with f(t) >= e "
+              f"({name}: {bad} of {e.numel()})")
+        if name == "weight1":
+            check(bool((got <= t).all()), "an equal draw would be rejected")
+    res["s"] = time.perf_counter() - t0
+    print(json.dumps({"k1_threshold": res}), flush=True)
+    return res
 
 
 def k2_vs_plain(torch, rng, dev) -> int:
@@ -709,20 +832,49 @@ def enqueue_ms(torch, fn, iters: int = 50) -> float:
     return t * 1e3 / iters
 
 
+class CounterSink:
+    """An ``obs.sink`` that keeps the program's counters of a call."""
+
+    def __init__(self):
+        self.records: dict = {}
+
+    def add(self, name, t0, t1) -> None:
+        pass
+
+    def record(self, name, value) -> None:
+        self.records.setdefault(name, []).append(value)
+
+
+def k1_counters(torch, fn) -> dict:
+    """K1's counters (``sketch.k1_logf``, ``sketch.k1_exact_steps``) over
+    one call of ``fn``, as ints."""
+    from kmerutils_tpu_torch import obs
+    sink = obs.sink = CounterSink()
+    try:
+        fn()
+    finally:
+        obs.sink = None
+    return {k: int(sum(v)) for k, v in sink.records.items()}
+
+
 class Bounds:
     """roofline bounds on this card: the SM count and maximum SM clock, and
-    for K1/K2 one instructions-per-draw figure for every build and mode,
-    the fewest that any tournament kernel's inner loop spends on a draw
-    (each kernel's own count is printed by phase 2)."""
+    the SASS counts of phase 2: K2's draws at its own loop's instructions
+    a draw; K1's draws through logf (its counter) at its exact loop's and
+    the rest at its rejecting loop's (roofline.k1_instructions)."""
 
     def __init__(self, torch, ipd: dict):
         from kmerutils_tpu_torch import roofline
         self.rl = roofline
-        self.per_draw = min(ipd.values())
+        self.torch = torch
+        self.k1 = ipd["u32"]
+        self.k2_per_draw = ipd["u64"]["instructions_per_draw"]
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
         self.clock = roofline.sm_clock_hz()
-        print(f"K1/K2 bound: {self.per_draw} instructions per draw, "
-              f"{self.sms} SMs at {self.clock / 1e9:.3f} GHz", flush=True)
+        print(f"K2 bound: {self.k2_per_draw} instructions a draw; K1: "
+              f"{self.k1['exact_per_draw']} a draw through logf, "
+              f"{self.k1['reject_per_draw']} a rejected one; {self.sms} SMs "
+              f"at {self.clock / 1e9:.3f} GHz", flush=True)
 
     def bytes(self, nbytes: float):
         return self.rl.bound(nbytes)
@@ -733,8 +885,14 @@ class Bounds:
         wide = len(args) == 3
         x = args[0] ^ args[1] if wide else args[0]
         draws, nbytes = self.rl.tournament_work(x, args[-1], m, wide)
-        return self.rl.bound(nbytes, draws * self.per_draw, self.sms,
-                             self.clock)
+        if wide:
+            instructions = draws * self.k2_per_draw
+        else:
+            from kmerutils_tpu_torch.ops import tournament as T
+            logf = k1_counters(self.torch, lambda: T.weighted_tournament(
+                *args, m))["sketch.k1_logf"]
+            instructions = self.rl.k1_instructions(draws, logf, self.k1)
+        return self.rl.bound(nbytes, instructions, self.sms, self.clock)
 
 
 def random_batch(rng, n: int, L: int):
@@ -783,14 +941,17 @@ def tournament_shapes(torch, rng, bench, collection: bool = False):
     row shapes of the paths: the bench batch ``bench`` at k=8 (K1) and
     k=21 (K2); the block rows of an 8 Mi-base batch (512 random reads x
     16,384 -> 16,384 x 512, k=8); a tail batch of three 16,384-base reads
-    (k=8); with ``collection``, sketch_collection's row of the bench
-    batch (items from the plain prefix)."""
+    (k=8); K1 at the k=8 cell's rungs 1600 x 5232 and 520 x 16,000; with
+    ``collection``, sketch_collection's row of the bench batch (items from
+    the plain prefix)."""
     yield "bench_k8", sorted_rows(torch, *plain_hashed(bench, 8))
     s, w = sorted_rows(torch, *plain_hashed(bench, 21))
     yield "bench_k21", (*halves(torch, s), w)
     yield "block_k8", block_rows(torch, random_batch(rng, 512, 16384), 8)
     yield "tail_k8", sorted_rows(torch, *plain_hashed(
         random_batch(rng, 3, 16384), 8))
+    for n, P in K1_RUNGS[1:3]:
+        yield f"rung_{n}x{P}_k8", rung(torch, rng, n, P)
     if collection:
         yield "collection_k21", collection_row(torch, bench)[0]
 
@@ -4475,7 +4636,6 @@ def against_baseline(torch, rng, root: str, card: str, ipd: dict,
           f"{base_build.build_info.get('seconds', 0.0):.2f} s", flush=True)
     for name, r in roofline.tournament_instructions_per_draw(
             base_build.library_path()).items():
-        ipd["baseline " + name] = r["instructions_per_draw"]
         print(f"baseline SASS {name[:60]}: inner loop {r['instructions']} "
               f"instructions for {r['draws']} draws")
     bounds = Bounds(torch, ipd)
@@ -4745,7 +4905,9 @@ def main(argv=None) -> int:
     try:
         card = environment(torch)
         bounds = Bounds(torch, build())
-        err1 = k1_vs_plain(torch, rng, "cuda")
+        err1 = max(k1_vs_plain(torch, rng, "cuda"),
+                   k1_rungs_vs_plain(torch, rng, "cuda"))
+        k1_threshold_check(torch)
         err2 = k2_vs_plain(torch, rng, "cuda")
         with tempfile.TemporaryDirectory() as tmp:
             launches, fq8, clean8 = slice_runs(torch, rng, tmp, card, "cuda")

@@ -75,7 +75,9 @@ def _declare(lib) -> None:
     lib.launch_tournament.restype = ci
     lib.launch_tournament.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ll, ci,
                                       ci, ci, ctypes.POINTER(TournamentPlan),
-                                      vp]
+                                      vp, vp]
+    lib.tournament_threshold_probe.restype = ci
+    lib.tournament_threshold_probe.argtypes = [vp, vp, vp, ll, vp]
     # csrc/sketch.cu
     lib.sketch_grid_config.restype = ci
     lib.sketch_grid_config.argtypes = [ctypes.POINTER(ci)]

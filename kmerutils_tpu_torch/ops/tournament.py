@@ -20,6 +20,13 @@ _build.py), cut into tiles by :func:`plan`, or raises; a CPU tensor runs
 the plain PyTorch version (``*_ref``), which is also what the kernels are
 checked against on the card.  u32 data crosses this boundary as int32 bit
 patterns.
+
+K1 takes ``ln(u)`` of a weight-1 draw only when its hash reaches an exact
+threshold (csrc/tournament.cu).  While ``obs.sink`` is set, each K1 launch
+reports two counters as device scalars: ``sketch.k1_logf``, the draws
+whose ``ln(u)`` it took, and ``sketch.k1_exact_steps``, the warp steps (two
+positions of each lane) of its weight-1 sweep where some lane's draw
+passed its threshold.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import functools
 
 import torch
 
+from .. import obs
 from .bitops import M32, i32_to_u32, s64, shr64
 from .rng import splitmix64
 
@@ -197,11 +205,16 @@ def _launch(wide: bool, a, b, winv, m: int, seed: int, pos: bool, outs):
     slotc = _slotc[(m, seed, dev)]
     scratch = torch.empty((n, m), dtype=torch.int64, device=dev) \
         if pl.split else None
+    counts = torch.zeros(2, dtype=torch.int64, device=dev) \
+        if obs.sink is not None and not wide else None
     ptr = (lambda t: None if t is None else t.data_ptr())
     _build.launch(lib.launch_tournament, int(wide), a.data_ptr(), ptr(b),
                   winv.data_ptr(), slotc.data_ptr(), outs[0].data_ptr(),
                   ptr(outs[1]), ptr(scratch), n, P, m, int(pos),
-                  ctypes.byref(_c_plan(pl)), device=dev)
+                  ctypes.byref(_c_plan(pl)), ptr(counts), device=dev)
+    if counts is not None:
+        obs.count("sketch.k1_logf", counts[0])
+        obs.count("sketch.k1_exact_steps", counts[1])
 
 
 def weighted_tournament(items: torch.Tensor, winv: torch.Tensor, m: int,
@@ -233,6 +246,28 @@ def weighted_tournament_u64(lo: torch.Tensor, hi: torch.Tensor,
     _launch(True, lo, hi, winv, m, seed, True, (out_lo, out_hi))
     launches_u64 += 1
     return out_lo, out_hi
+
+
+def unit_logs(device) -> torch.Tensor:
+    """float32[2^24]: K1's weight-1 draw ln((t + 1) * 2^-24) for every
+    t = h >> 8, computed by the kernels' own logf on CUDA ``device``."""
+    from .. import _build
+    dev = torch.device(device)
+    out = torch.empty(1 << 24, dtype=torch.float32, device=dev)
+    _build.launch(_build.load().tournament_threshold_probe, None, None,
+                  out.data_ptr(), out.numel(), device=dev)
+    return out
+
+
+def unit_thresholds(e: torch.Tensor) -> torch.Tensor:
+    """int64[k]: for each draw e (float32[k] on CUDA, each <= 0) K1's
+    threshold, the smallest t in [0, 2^24) with unit_logs()[t] >= e."""
+    from .. import _build
+    e = e.contiguous()
+    out = torch.empty(e.shape, dtype=torch.int32, device=e.device)
+    _build.launch(_build.load().tournament_threshold_probe, e.data_ptr(),
+                  out.data_ptr(), None, e.numel(), device=e.device)
+    return out.to(torch.int64) & M32
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,13 @@ A kernel's bound is the larger of two times for the same work:
 - operations: for the tournament kernels K1/K2, the draws the inputs need
   times the thread instructions one draw costs, over SMs x 128 lanes x the
   SM clock that ``nvidia-smi`` reports as its maximum.  The instructions
-  per draw are counted in the SASS of each kernel's inner loop
-  (``cuobjdump -sass``); chip_smoke.py takes the fewest of any tournament
-  kernel, so every build and mode is held to one figure for the same work.
+  per draw are counted in the SASS of each kernel's own inner loops
+  (``cuobjdump -sass``, :func:`tournament_instructions_per_draw`): K2's
+  one loop, every draw through logf; K1's rejecting loop (weight 1: the
+  hash and its test, on the path that skips the rare passes) and its exact
+  loop (the other weights, every draw through logf).  K1's bound takes
+  the exact loop's count for the draws its counter says took logf and the
+  rejecting loop's for the rest (:func:`k1_instructions`).
   For the grid kernels G1/G2 (csrc/sketch.cu), the integer operations
   that the function needs per (position, slot) pair, counted by hand from
   the function and not from the kernel's code (:data:`G1_OPS_PER_PAIR`,
@@ -185,43 +189,123 @@ def pipe_of(op: str) -> str:
     return "other"
 
 
-def draw_loop(insns, spellings=(DRAW_MARKER,), fallback: bool = True) -> dict:
-    """The innermost loop that holds draws: its instruction count, the
+def _target(rest: str):
+    tgt = re.search(r"0x([0-9a-f]+)", rest)
+    return int(tgt.group(1), 16) if tgt else None
+
+
+def straight_path(body):
+    """The instructions of a loop body (from its first instruction to its
+    branch back) that run when every forward branch inside the body is
+    taken: the path that skips each guarded region (a rare record or
+    pass; a region the compiler predicates instead stays on it)."""
+    at = {a: i for i, (a, _, _) in enumerate(body)}
+    out, i = [], 0
+    while i < len(body):
+        addr, op, rest = body[i]
+        out.append(body[i])
+        tgt = _target(rest) if op == "BRA" else None
+        i = at[tgt] if tgt is not None and addr < tgt and tgt in at \
+            else i + 1
+    return out
+
+
+def _loops(insns, marker):
+    """(first address, branch-back address, body, draws) of every loop
+    that holds draws."""
+    loops = []
+    for addr, op, rest in insns:
+        tgt = _target(rest)
+        if op.startswith("BRA") and tgt is not None and tgt < addr:
+            body = [i for i in insns if tgt <= i[0] <= addr]
+            draws = sum(_is_draw(o, r, marker) for _, o, r in body)
+            if draws:
+                loops.append((tgt, addr, body, draws))
+    return loops
+
+
+def draw_loops(insns, spellings=(DRAW_MARKER,), fallback: bool = True,
+               innermost: bool = True) -> list[dict]:
+    """Every loop that holds draws (with ``innermost``, only those that
+    hold no other such loop), innermost first: its instruction count, the
     draws one pass makes (instructions with an immediate spelled as one of
     ``spellings``, or with ``fallback``, where the constant sits in a
-    register, unsigned int-to-float conversions), their ratio, and the
-    loop's instructions by pipe (:func:`pipe_of`) per draw."""
-    loops = []
+    register, unsigned int-to-float conversions), their ratio, the loop's
+    instructions by pipe (:func:`pipe_of`) per draw, and on its
+    :func:`straight_path` the instructions, the draws and the unsigned
+    int-to-float conversions (one a draw that takes its logarithm)."""
     marker = spellings if any(_has(r, spellings) for _, _, r in insns) \
         else None
     if marker is None and not fallback:
         raise RuntimeError(f"no immediate {spellings} in the SASS")
-    for addr, op, rest in insns:
-        tgt = re.search(r"0x([0-9a-f]+)", rest)
-        if op.startswith("BRA") and tgt and int(tgt.group(1), 16) < addr:
-            body = [i for i in insns if int(tgt.group(1), 16) <= i[0] <= addr]
-            draws = sum(_is_draw(o, r, marker) for _, o, r in body)
-            if draws:
-                loops.append((int(tgt.group(1), 16), addr, body, draws))
+    loops = _loops(insns, marker)
     inner = [lp for lp in loops
              if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1]
                         for o in loops)]
     if not inner:
         raise RuntimeError("no loop with draws found in the SASS")
-    lo, hi, body, draws = max(inner, key=lambda lp: (lp[3], -len(lp[2])))
-    pipes: dict[str, float] = {}
-    for _, op, _ in body:
-        pipes[pipe_of(op)] = pipes.get(pipe_of(op), 0) + 1 / draws
-    return {"instructions": len(body), "draws": draws,
+    out = []
+    for lo, hi, body, draws in sorted(inner if innermost else loops,
+                                      key=lambda lp: len(lp[2])):
+        pipes: dict[str, float] = {}
+        for _, op, _ in body:
+            pipes[pipe_of(op)] = pipes.get(pipe_of(op), 0) + 1 / draws
+        path = straight_path(body)
+        out.append({
+            "instructions": len(body), "draws": draws,
             "instructions_per_draw": len(body) / draws,
-            "pipes_per_draw": pipes, "range": [hex(lo), hex(hi)]}
+            "pipes_per_draw": pipes, "range": [hex(lo), hex(hi)],
+            "straight": len(path),
+            "straight_draws": sum(_is_draw(o, r, marker) for _, o, r in path),
+            "straight_logs": sum(o.startswith("I2F") and "U32" in o
+                                 for _, o, _ in path)})
+    return out
+
+
+def draw_loop(insns, spellings=(DRAW_MARKER,), fallback: bool = True) -> dict:
+    """The innermost loop with the most draws (the shorter on a tie), as
+    :func:`draw_loops` counts it."""
+    return max(draw_loops(insns, spellings, fallback),
+               key=lambda r: (r["draws"], -r["instructions"]))
 
 
 def tournament_instructions_per_draw(lib_path: str) -> dict[str, dict]:
-    """draw_loop of each tournament kernel in the library, by name."""
-    return {name: draw_loop(insns)
-            for name, insns in sass_functions(lib_path).items()
-            if "tournament" in name and "finish" not in name}
+    """Each tournament kernel in the library, by name: draw_loop, and for
+    a kernel with a loop that rejects draws before their logarithm (K1),
+    "exact" and "reject": the innermost loop whose straight path takes a
+    logarithm for each draw (all its instructions over its draws) and the
+    innermost loop whose straight path draws and takes none (its straight
+    path over its draws there; the passes' region, with its own loop, is
+    off that path), and their "exact_per_draw" and "reject_per_draw"."""
+    out = {}
+    for name, insns in sass_functions(lib_path).items():
+        if "tournament_kernel" not in name:
+            continue
+        marker = _spellings(0x9E3779B1)
+        r = dict(draw_loop(insns, marker))
+        loops = draw_loops(insns, marker, innermost=False)
+        reject = [lp for lp in loops
+                  if lp["straight_draws"] and not lp["straight_logs"]]
+        exact = [lp for lp in loops
+                 if lp["straight_logs"] >= lp["draws"] > 0]
+        if reject and exact:
+            r["reject"], r["exact"] = reject[0], exact[0]
+            r["reject_per_draw"] = reject[0]["straight"] / \
+                reject[0]["straight_draws"]
+            r["exact_per_draw"] = exact[0]["instructions_per_draw"]
+            r.update({k: exact[0][k] for k in ("instructions", "draws",
+                                               "instructions_per_draw",
+                                               "pipes_per_draw", "range")})
+        out[name] = r
+    return out
+
+
+def k1_instructions(needed_draws: int, logf_draws: int, counts: dict) -> float:
+    """K1's thread instructions for a call from its SASS counts
+    (tournament_instructions_per_draw of the K1 kernel): the draws through
+    logf at the exact loop's count, the rest at the rejecting loop's."""
+    return (logf_draws * counts["exact_per_draw"]
+            + (needed_draws - logf_draws) * counts["reject_per_draw"])
 
 
 GRID_KERNELS = {"grid_min": "grid_min_kernel", "grid_max": "grid_max_kernel"}

@@ -12,6 +12,8 @@ else fails.  The CUDA kernels themselves are compared with these plain
 versions, bit for bit, on the card by chip_smoke.py.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -315,6 +317,211 @@ def test_packed_key_max_is_the_comparator_on_adversarial_ties():
         assert (e[win], pay[win]) == (e[best], pay[best])
         assert 0 < min(keys) and max(keys) < 1 << 63
         # 0 stays "no valid position"; the keys are positive as int64
+
+
+# ---------------------------------------------------------------------------
+# K1's weight-1 rejection (csrc/tournament.cu: unit_log, threshold24,
+# walk_down, k1_tiles), modelled on the CPU
+# ---------------------------------------------------------------------------
+
+H24 = 1 << 24
+REFRESH = 8                      # csrc/tournament.cu kRefresh
+
+
+@functools.lru_cache(maxsize=1)
+def unit_logs_cpu() -> torch.Tensor:
+    """The model's f(t) = ln((t + 1) * 2^-24) for every t < 2^24: the CPU's
+    log in float64, rounded to float32, in this thread (monotone by
+    construction; the card's logf is checked exhaustively by
+    chip_smoke.py)."""
+    u = np.arange(1, H24 + 1, dtype=np.float64) * 2.0**-24
+    return torch.from_numpy(np.log(u).astype(np.float32))
+
+
+def threshold_model(e: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """threshold24 over float32 draws e: the guess from exp, moved up while
+    f(t) < e, then walk_down's steps while f(t - 1) >= e."""
+    g = torch.exp(e) * np.float32(H24)
+    t = torch.where(g >= H24, H24 - 1,
+                    torch.where(g >= 1, g.to(torch.int64) - 1, 0))
+    while True:
+        up = (t < H24 - 1) & (f[t] < e)
+        if not bool(up.any()):
+            break
+        t = t + up.to(torch.int64)
+    while True:
+        down = (t > 0) & (f[(t - 1).clamp(min=0)] >= e)
+        if not bool(down.any()):
+            return t
+        t = t - down.to(torch.int64)
+
+
+def threshold_draws(kind: str, f: torch.Tensor) -> torch.Tensor:
+    """Best draws a tile may hold: every weight-1 draw, draws at weights
+    1/2, 1/3 and 1/5 (between and on weight-1 draws), every weight-1 draw
+    one ulp lower, and the ends."""
+    if kind == "weight1":
+        return f.clone()
+    if kind.startswith("w/"):
+        return f[::97] * np.float32(1.0 / int(kind[2:]))
+    if kind == "ulp_below":
+        return torch.nextafter(f, torch.tensor(-np.inf))
+    return torch.tensor([-np.inf, 0.0, -0.0, float(f[0]), float(f[1]),
+                         float(f[0]) * 2, -1e-30, float(f[-2]),
+                         np.nextafter(np.float32(f[0]), np.float32(-1)),
+                         -3.4e38], dtype=torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["weight1", "w/2", "w/3", "w/5",
+                                  "ulp_below", "ends"])
+def test_weight1_threshold_rejects_exactly_the_draws_below_the_best(kind):
+    """T(be) is the smallest t with f(t) >= be, so "h >> 8 < T(be)" is
+    "the weight-1 draw is below be": no draw that reaches be, a tie
+    included, is rejected."""
+    f = unit_logs_cpu()
+    assert bool((f[1:] >= f[:-1]).all()) and float(f[-1]) == 0.0
+    be = threshold_draws(kind, f)
+    got = threshold_model(be, f)
+    want = torch.searchsorted(f, be, side="left")
+    assert torch.equal(got, want.clamp(max=H24 - 1))
+    if kind == "weight1":      # an equal draw always passes
+        assert bool((got <= torch.arange(H24)).all())
+    step = max(1, be.numel() // 7)
+    for b, t in zip(be[::step].tolist(), got[::step].tolist()):
+        rejected = torch.arange(H24) < t
+        assert torch.equal(rejected, f < b), (b, t)
+
+
+def k1_tile_model(x, winv, sc, pos_mode: bool, J: int, rng):
+    """The keys one tile of K1 leaves for one row [P] and slots sc: staging
+    to weight 1 and the rest in an arbitrary order (the kernel's shared
+    atomics), phase B's units every draw through the log, thr = T(keys),
+    then phase A's units in an arbitrary interleaving, each keeping only T
+    from thr (again every REFRESH positions and after its passing draws
+    meet the tile's key), a passing draw's key meeting the tile's and,
+    when it raises it, its T going to thr.  (The kernel queues passing
+    draws and meets them 32 at a time; the interleaving stands for that.)"""
+    f = unit_logs_cpu()
+    P = x.size
+    ok = winv > 0
+    rep = np.zeros(P, bool)
+    rep[1:] = (x[1:] == x[:-1]) & (winv[1:] == winv[:-1])
+    cols = np.flatnonzero(ok & ~rep)
+    one = cols[winv[cols] == np.float32(1.0)]
+    rest = cols[winv[cols] != np.float32(1.0)]
+    one, rest = rng.permutation(one), rng.permutation(rest)
+    keys = np.zeros(sc.size, object)
+
+    def h_of(c, s):
+        h = ((int(x[c]) ^ int(sc[s])) * 0x9E3779B1) & 0xFFFFFFFF
+        h ^= h >> 15
+        return (h * 0x85EBCA77) & 0xFFFFFFFF
+
+    def pay_of(c):
+        return int(c) if pos_mode else int(x[c])
+
+    for s in range(sc.size):
+        for j in range(J):                       # phase B
+            be, bp = -np.inf, 0xFFFFFFFF
+            for c in rest[j::J]:
+                e = np.float32(f[h_of(c, s) >> 8]) * winv[c]
+                if e >= be and (e > be or pay_of(c) < bp):
+                    be, bp = e, pay_of(c)
+            if be != -np.inf:
+                keys[s] = max(keys[s], pack(be, bp))
+    kd = np.array([-np.inf if k == 0 else np.float32(0.0)
+                   if k >> 32 == 0x7FFFFFFF else
+                   np.uint32(~(k >> 32) & 0xFFFFFFFF).view(np.float32)
+                   for k in keys], np.float32)
+    thr = threshold_model(torch.from_numpy(kd), f).numpy() << 8
+    units = [(s, j) for s in range(sc.size) for j in range(J)]
+    state = {u: dict(k=u[1], since=0, T=int(thr[u[0]])) for u in units}
+    live = [u for u in units if state[u]["k"] < one.size]
+    while live:                                   # phase A
+        u = live[rng.integers(len(live))]
+        st, s = state[u], u[0]
+        st["since"] += 1
+        if st["since"] == REFRESH:
+            st["since"], st["T"] = 0, max(st["T"], int(thr[s]))
+        c = one[st["k"]]
+        h = h_of(c, s)
+        if h >= st["T"]:
+            e = np.float32(f[h >> 8])
+            key = pack(e, pay_of(c))
+            if key > keys[s]:                     # the tile's atomicMax
+                keys[s] = key
+                t = h >> 8
+                while t > 0 and float(f[t - 1]) >= e:
+                    t -= 1
+                thr[s] = max(int(thr[s]), t << 8)
+                st["T"] = max(st["T"], t << 8)
+            else:
+                st["T"] = max(st["T"], int(thr[s]))
+        st["k"] += J
+        if st["k"] >= one.size:
+            live.remove(u)
+    return keys
+
+
+def same_h24_items(slot_const: int, h24: int, k: int):
+    """k distinct items whose hashes in one slot share h >> 8: equal draws
+    at equal weight."""
+    return [unit_draw_item(slot_const, (h24 << 8) | i) for i in range(k)]
+
+
+@pytest.mark.parametrize("pos_mode", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k1_tile_from_the_tiles_threshold_gives_the_plain_maximum(
+        seed, pos_mode):
+    """A tile whose units test each weight-1 draw against T of the tile's
+    best (thr), seeded after the other weights and raised by every draw
+    that raises the tile's key, leaves the keys of the plain comparator:
+    the largest draw, then the smallest payload, whatever order the units
+    run in.  Rows hold u = 1 draws at weights 1, 1/2 and 1/4, runs of
+    repeats with equal and other weights, and equal weight-1 draws of
+    distinct items."""
+    rng = np.random.default_rng(seed)
+    m, P, J = 5, 420, 4
+    sc = T.slot_consts(m, seed, device="cpu").numpy()
+    x = rng.integers(0, 1 << 32, size=P, dtype=np.uint64).astype(np.uint32)
+    mult = rng.choice([1, 1, 1, 1, 1, 1, 2, 3, 4], size=P)
+    winv = (1.0 / mult).astype(np.float32)
+    winv[rng.random(P) < 0.08] = 0.0
+    for s, (h, w) in enumerate([(0xFFFFFFFF, 1.0), (0xFFFFFF00, 0.5),
+                                (0xFFFFFF7F, 0.25)]):
+        at = rng.integers(0, P, size=2)
+        x[at] = unit_draw_item(int(sc[s]), h)
+        winv[at] = w
+    for i, item in enumerate(same_h24_items(int(sc[3]), 0xFFFFFF, 4)):
+        x[30 + 40 * i], winv[30 + 40 * i] = item, 1.0
+    x[200:206], winv[200:206] = x[199], [1.0, 0.5, 0.5, 1.0, 0.25, 1.0]
+    keys = k1_tile_model(x, winv, sc, pos_mode, J, rng)
+    f = unit_logs_cpu().numpy()
+    ok = winv > 0
+    for s in range(m):             # the plain comparator on the same draws
+        h = ((x.astype(np.uint64) ^ np.uint64(sc[s])) * np.uint64(
+            0x9E3779B1)) & np.uint64(0xFFFFFFFF)
+        h ^= h >> np.uint64(15)
+        h = (h * np.uint64(0x85EBCA77)) & np.uint64(0xFFFFFFFF)
+        e = np.where(ok, f[(h >> np.uint64(8)).astype(np.int64)] * winv,
+                     -np.inf).astype(np.float32)
+        pay = np.arange(P) if pos_mode else x.astype(np.int64)
+        want = pay[e == e.max()].min()
+        assert keys[s] == pack(e.max(), int(want)), s
+
+
+@pytest.mark.parametrize("n,P", [(1024, 5993), (1600, 5232), (520, 16_000),
+                                 (3, 16_377), (512, 12_268), (512, 16_364)])
+def test_plans_at_the_cells_row_shapes_are_unchanged(n, P):
+    """K1's rejection needs no other cut of the tiles: at 4 blocks an SM
+    the plan of the sketch cells' row shapes (the k=8 and k=21 rungs) is
+    the one K1 and K2 had before it."""
+    want = {(1024, 5993): (1, 1199, 2048, 32, 5), (1600, 5232):
+            (1, 1744, 2048, 32, 3), (520, 16_000): (1, 1778, 2048, 32, 9),
+            (3, 16_377): (1, 512, 2048, 32, 32), (512, 12_268):
+            (1, 1364, 2048, 32, 9), (512, 16_364): (1, 1819, 2048, 32, 9)}
+    pl = T.plan(n, P, 200, 132, 4)
+    assert (pl.rows, pl.span, pl.chunk, pl.sub, pl.spans) == want[(n, P)]
 
 
 def unit_draw_item(slot_const: int, h: int) -> int:
