@@ -121,7 +121,11 @@ kernels are built for sm_90a with nvcc).  Every phase is fatal on failure:
    rounds ends (``roofline.walk_stats``), whole rows of 2047 and 2049
    positions around G2's 2048-position chunk, and rows of 1-3 valid
    positions at m = 200 and 4096 (the copies that fill G2's last shared
-   load); timed at the bench shape and the collection row with CUDA
+   load); G1 alone at the rows of the SUPER2 cell (``GRID_CELL_CHECKS``:
+   k=21 u64 items of length-sorted reads through KP and
+   ``grid_min_args``, m = 1000, rows split over 2-9 spans); timed at the
+   bench shape and the collection row (G1 also at the cell's median
+   batch, 1600 x 5232 at m = 1000) with CUDA
    events against its plain version and its bound
    (kmerutils_tpu_torch/roofline.py: the integer operations the function
    needs per (position, slot) pair, G1's cycle walk counted from the
@@ -2594,11 +2598,41 @@ GRID_CHECKS = tuple((mm, 64, 2000) for mm in (1, 13, 129, 199, 200, 201, 257,
     (200, 5, 1), (129, 1, 300_000))
 GRID_TAIL_CHECKS = ((200, 4224, 2047, False), (200, 4224, 2049, False),
                     (200, 64, 2000, True), (4096, 64, 2000, True))
+# (rows, positions) of G1's exact checks at the rows of the SUPER2 cell
+# (k=21, m=1000, u64 items of length-sorted reads, ont_super2_k21_resident):
+# its median batch, its widest row of a full batch, its longest rows and
+# its shortest, whose rows the plan splits over 3, 5, 9 and 2 spans on a
+# card of 132 SMs; G1 is timed at the first of them (GRID_CELL_TIMED)
+GRID_CELL_M = 1000
+GRID_CELL_CHECKS = ((1600, 5232), (1024, 8172), (512, 16364), (4096, 2028))
+GRID_CELL_TIMED = "cell_k21_m1000"
+
+
+def grid_cell_args(torch, rng, n: int, P: int, k: int = 21,
+                   m: int = GRID_CELL_M, dev="cuda"):
+    """G1's inputs at one of the SUPER2 cell's rows: n random reads of
+    P + k - 1 bases at most, the first full and each at least three
+    quarters of that (a length-sorted batch), through KP's u64 k-mer hash
+    (its first P positions) and ``superminhash.grid_min_args``."""
+    from kmerutils_tpu_torch.sketch import superminhash
+    from kmerutils_tpu_torch.sketch.jaccard import hashed_kmers
+    L = P + k - 1
+    lens = rng.integers(L * 3 // 4, L + 1, size=n).astype(np.int32)
+    lens[0] = L
+    items, valid = hashed_kmers(kp_batch(rng, n, L, lens.tolist(), dev), k)
+    # KP's rows end on a whole word: the positions past P hold no k-mer
+    check(items.shape[1] >= P and items.dtype == torch.int64
+          and not bool(valid[:, P:].any()),
+          f"the cell's row {n} x {P}: items {tuple(items.shape)} "
+          f"{items.dtype}, a valid k-mer past position {P}")
+    return superminhash.grid_min_args(items[:, :P].contiguous(),
+                                      valid[:, :P].contiguous(), m)
 
 
 def grid_kernels_vs_plain(torch, rng, card: str, bench, m: int = 200):
-    """G1 / G2 exact at every checked shape; timed at the bench shape (k=8
-    and k=21) and sketch_collection's row.  Returns the kernels' numbers."""
+    """G1 / G2 exact at every checked shape, G1 at the SUPER2 cell's rows;
+    timed at the bench shape (k=8 and k=21) and sketch_collection's row,
+    G1 at the cell's median batch.  Returns the kernels' numbers."""
     from kmerutils_tpu_torch import _build, roofline as rl
     from kmerutils_tpu_torch.ops import sketch_grid as G
     ipp = rl.grid_instructions_per_pair(_build.library_path())
@@ -2619,7 +2653,19 @@ def grid_kernels_vs_plain(torch, rng, card: str, bench, m: int = 200):
     timed = {}
     for shape, g1, g2 in grid_timed_shapes(torch, bench, m):
         both(g1, g2, shape)
-        timed[shape] = (g1, g2)
+        timed[shape] = {"grid_min": g1, "grid_max": g2}
+    for i, (n, P) in enumerate(GRID_CELL_CHECKS):
+        g1 = grid_cell_args(torch, rng, n, P)
+        spans = G.launch_plan(g1[0].device, n, P, GRID_CELL_M,
+                              G.G1_SLOTS_PER_THREAD).spans
+        print(f"the SUPER2 cell's row {n} x {P}: G1's plan splits it over "
+              f"{spans} spans", flush=True)
+        err["grid_min"] = max(err["grid_min"], grid_case(
+            torch, G, "grid_min", g1, f"the SUPER2 cell's row {n} x {P}, "
+            f"k=21 u64 items"))
+        if i == 0:
+            timed[GRID_CELL_TIMED] = {"grid_min": g1}
+        del g1
     for mm, n, P, few in tuple((*c, False) for c in GRID_CHECKS) \
             + GRID_TAIL_CHECKS:
         for wide in (False, True):
@@ -2639,14 +2685,15 @@ def grid_kernels_vs_plain(torch, rng, card: str, bench, m: int = 200):
             both(g1, g2, what)
             del g1, g2, items, valid
     out = {}
-    for shape, (g1, g2) in timed.items():
-        for name, args in (("grid_min", g1), ("grid_max", g2)):
+    for shape, calls in timed.items():
+        for name, args in calls.items():
             kern = functools.partial(getattr(G, name), *args)
             plain = functools.partial(getattr(G, name + "_ref"), *args)
             ms, pms, runs = turns(torch, kern, plain, iters=10, plain_iters=1)
             ops, nbytes = rl.grid_work(name, args)
             bound = rl.bound(nbytes, ops, sms, clock)
-            pairs = int(args[-2].sum()) * m
+            mm = args[-1].numel()
+            pairs = int(args[-2].sum()) * mm
             r = {"ms": ms, "plain_ms": pms, "bound_ms": bound[0],
                  "bound_by": bound[1], "alu_floor_ms": rl.alu_floor_ms(
                      pairs, sms, clock) if name == "grid_max" else None,
@@ -2659,10 +2706,11 @@ def grid_kernels_vs_plain(torch, rng, card: str, bench, m: int = 200):
             out.setdefault(name, {})[shape] = r
             print(json.dumps({"timing": f"{name}_{shape}",
                               "rows": args[0].shape[0],
-                              "P": args[0].shape[1], "m": m, **r,
+                              "P": args[0].shape[1], "m": mm, **r,
                               "bound_share": bound[0] / ms,
                               "card": card}), flush=True)
-        del g1, g2
+        del calls
+    timed.clear()
     torch.cuda.empty_cache()
     for name in out:
         out[name]["max_abs_err"] = err[name]
@@ -5008,7 +5056,8 @@ def main(argv=None) -> int:
             "ops_per_pair": r["bench_k8"]["ops_per_pair"],
             "sass_per_pair": r["sass_per_pair"],
             "sass_pipes_per_pair": r["sass_pipes_per_pair"],
-            **{f"{k}_each_shape": {s: r[s][k] for s in GRID_TIMED}
+            **{f"{k}_each_shape": {s: r[s][k] for s in GRID_TIMED
+                                   + (GRID_CELL_TIMED,) if s in r}
                for k in ("ms", "plain_ms", "bound_ms")}})
     # G1 also runs on phase 12's path (seqminhash's SuperMinHash); K3, K4,
     # K5 and G2 on phase 13's sharded path

@@ -31,6 +31,11 @@ of the inputs picks the implementation: a CUDA tensor launches the
 hand-written kernel of csrc/sketch.cu (built on first use by _build.py), or
 raises; a CPU tensor runs the plain PyTorch version (``*_ref``), which is
 also what the kernels are checked against on the card.
+
+While ``obs.sink`` is set, each G1 launch reads the counter
+``sketch.g1_split`` (:func:`count_split`): its n x P where the plan splits
+rows over several spans, whose tiles each load the slot constants again
+and end in m global atomicMin, else 0.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import functools
 
 import torch
 
+from .. import obs
 from .bitops import M32
 
 WALKS = 4                # cycle-walk rounds after the first encryption
@@ -194,11 +200,19 @@ def grid_min(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     m = slotc.shape[0]
     out = torch.full((n, m), -1, dtype=torch.int32, device=dev)
     pl = launch_plan(dev, n, P, m, G1_SLOTS_PER_THREAD)
+    count_split(n, P, pl)
     _build.launch(_build.load().launch_grid_min, *(t.data_ptr() for t in (
         x, a, b, valid, slotc, out)), n, P, m, pl.threads_per_set,
         pl.subsets, pl.span, device=dev)
     launches_min += 1
     return out
+
+
+def count_split(n: int, P: int, pl: Plan) -> None:
+    """Counter ``sketch.g1_split`` of one G1 launch of n rows of P
+    positions under plan ``pl``: n x P where it splits rows over spans,
+    else 0; nothing while ``obs.sink`` is None."""
+    obs.count("sketch.g1_split", n * P if pl.spans > 1 else 0)
 
 
 def grid_max(x: torch.Tensor, valid: torch.Tensor,

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..ops import sketch_grid
 from ..ops.bitops import M32, as_u64, s64, shr64
 from ..ops.rng import splitmix64
@@ -68,9 +69,12 @@ def superminhash2(items: torch.Tensor, valid: torch.Tensor, m: int,
                   seed: int = 0):
     """Integer-signature SuperMinHash (SUPER2): (sig int32[n, m], the
     packed key of the winning item per slot as u32 bit patterns; empty
-    bool[n]).  Rows without a valid item hold 0xFFFFFFFF."""
-    sig = sketch_grid.grid_min(*grid_min_args(items, valid, m, seed))
-    return sig, ~valid.any(dim=1)
+    bool[n]).  Rows without a valid item hold 0xFFFFFFFF.  Span
+    ``sketch.grid`` (G1's inputs, G1 and the empty rows), over n x P
+    positions."""
+    with obs.span("sketch.grid", items.numel(), items.device):
+        sig = sketch_grid.grid_min(*grid_min_args(items, valid, m, seed))
+        return sig, ~valid.any(dim=1)
 
 
 def superminhash(items: torch.Tensor, valid: torch.Tensor, m: int,
